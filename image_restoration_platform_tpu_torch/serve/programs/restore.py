@@ -1,0 +1,67 @@
+"""The restore program: masked classify -> conditioning -> gated deblock and
+deblur -> backbone -> byte or YCbCr-plane egress.
+
+Counterpart of image_restoration_platform_tpu/serve/programs/restore.py for
+the standard restore families, run eagerly under ``torch.inference_mode()``
+(no ``torch.compile``, no CUDA graphs). The SR and diffusion programs are
+not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...classify.fused import batch_classify_and_condition
+from ...models import get_family
+from ...models import nn as mnn
+from ...ops.deblock import deblock_and_recondition
+from ...ops.deblur import deblur_and_recondition
+from .egress import to_yuv420, to_yuv420_s2d
+
+
+def build_restore_program(
+    family_name: str,
+    *,
+    dtype: torch.dtype,
+    use_s2d_io: bool,
+    use_deblur: bool,
+    use_deblock: bool,
+    egress: str = "rgb",
+):
+    """``fn(model, canvas_u8 [N,B,B,3] u8, valid_hw [N,2] int32,
+    is_jpeg_f [N] f32) -> (out, scores [N,7])``, all tensors on the model's
+    device. ``out`` is the RGB u8 canvas, or with ``egress="yuv420"`` the
+    (Y, Cb, Cr) u8 planes."""
+    if family_name.startswith("sr-") or family_name == "diffusion-restore":
+        raise NotImplementedError(f"the {family_name} program is not ported to PyTorch yet")
+    if egress not in ("rgb", "yuv420"):
+        raise ValueError(f"unknown egress {egress!r}")
+    cfg = get_family(family_name).config
+    s2d_scale = cfg.input_scale
+
+    def program(model, canvas_u8, valid_hw, is_jpeg_f):
+        with torch.inference_mode():
+            scores, cond = batch_classify_and_condition(canvas_u8.float(), valid_hw, is_jpeg_f)
+            stage_scores = scores
+            if use_deblock:
+                canvas_u8, stage_scores, cond = deblock_and_recondition(
+                    canvas_u8, valid_hw, is_jpeg_f, scores, cond
+                )
+            if use_deblur:
+                canvas_u8, cond = deblur_and_recondition(
+                    canvas_u8, valid_hw, is_jpeg_f, stage_scores, cond
+                )
+            if use_s2d_io:
+                x = mnn.space_to_depth(canvas_u8, s2d_scale).to(dtype) / 255.0
+                out = model(x, cond.to(dtype), s2d_io=True)
+                if egress == "yuv420":
+                    return to_yuv420_s2d(out), scores
+                out_u8 = torch.round(torch.clamp(out.float(), 0.0, 1.0) * 255.0).to(torch.uint8)
+                return mnn.pixel_shuffle(out_u8, s2d_scale), scores
+            x = canvas_u8.to(dtype) / 255.0
+            out = torch.clamp(model(x, cond.to(dtype)).float(), 0.0, 1.0)
+            if egress == "yuv420":
+                return to_yuv420(out * 255.0), scores
+            return torch.round(out * 255.0).to(torch.uint8), scores
+
+    return program

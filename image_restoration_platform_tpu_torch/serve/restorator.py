@@ -1,0 +1,280 @@
+"""Restorator — decode -> letterbox -> restore program -> prompt -> JPEG.
+
+Counterpart of the 8-bit standard restore path of
+image_restoration_platform_tpu/serve/restorator.py (``RestoratorService
+.restore``): the result contract (per-stage timings, degradation analysis,
+enhanced prompt, metadata with ``classificationIssues``), the structured
+failure with its error taxonomy and failed stage.
+
+Not ported yet, and refused with ``NotImplementedError`` rather than served
+another way: the SR and diffusion families, and 16-bit PNG uploads while the
+HDR deblur pre-pass is on (``SERVE_HDR_DEBLUR``).
+"""
+
+from __future__ import annotations
+
+import base64
+import time
+
+import numpy as np
+
+from .. import imageio
+from ..classify.classifier import DEGRADATION_ORDER
+from ..config import ServingConfig
+from ..obs.metrics import get_counters
+from ..obs.tracing import get_tracer
+from ..ops.resize import fit_inside
+from ..prompt import PromptEnhancerService
+from ..utils.logging import get_logger
+from .engine import RestorationEngine, resolve_device
+
+STANDARD_FAMILIES = ("restore-unet", "restore-unet-small")
+
+
+def _classify_error(error: Exception) -> str:
+    message = str(error).lower()
+    if "rate limit" in message or "429" in message:
+        return "RATE_LIMIT_EXCEEDED"
+    if "timeout" in message or "etimedout" in message:
+        return "TIMEOUT"
+    if "invalid" in message or "400" in message or "corrupt" in message:
+        return "INVALID_INPUT"
+    if "unauthorized" in message or "401" in message:
+        return "AUTHENTICATION_FAILED"
+    if "service unavailable" in message or "503" in message:
+        return "SERVICE_UNAVAILABLE"
+    if "resource exhausted" in message or "out of memory" in message:
+        return "RESOURCE_EXHAUSTED"
+    return "UNKNOWN_ERROR"
+
+
+def _failure_stage(timings: dict) -> str:
+    if "classify_ms" in timings and "prompt_ms" not in timings:
+        return "PROMPT_ENHANCEMENT"
+    if "prompt_ms" in timings and "restore_ms" not in timings:
+        return "AI_RESTORATION"
+    if "classify_ms" not in timings:
+        return "CLASSIFICATION"
+    return "UNKNOWN"
+
+
+class RestoratorService:
+    def __init__(
+        self,
+        engine: RestorationEngine | None = None,
+        prompt_enhancer: PromptEnhancerService | None = None,
+        serving_config: ServingConfig | None = None,
+        batcher=None,
+        logger=None,
+        device: str = "cuda",
+    ):
+        device = resolve_device(device)
+        self.engine = engine or RestorationEngine(device=device, serving_config=serving_config)
+        if self.engine.device.type != device.type:
+            raise ValueError(f"restorator device {device} differs from the engine's {self.engine.device}")
+        self.prompt_enhancer = prompt_enhancer or PromptEnhancerService()
+        self.config = serving_config or ServingConfig()
+        self.batcher = batcher  # optional continuous micro-batcher (serve/batcher.py)
+        self.logger = logger or get_logger("restorator")
+        self._tracer = get_tracer("restorator")
+
+    # ------------------------------------------------------ size bucketing
+
+    def _bucket_for(self, h: int, w: int) -> int:
+        longest = max(h, w)
+        for bucket in sorted(self.config.size_buckets):
+            if longest <= bucket:
+                return bucket
+        return max(self.config.size_buckets)
+
+    def _canonicalize(self, img: np.ndarray) -> tuple[np.ndarray, tuple[int, int], int]:
+        """Letterbox into the serving bucket: aspect-preserving host Lanczos
+        resize to fit, then edge-pad to the square bucket. Returns (canvas,
+        (scaled_h, scaled_w), bucket)."""
+        h, w = img.shape[:2]
+        bucket = self._bucket_for(h, w)
+        sw, sh = fit_inside(w, h, bucket)
+        if (sh, sw) != (h, w):
+            img = imageio.resize_rgb8(img, (sh, sw))
+        if (sh, sw) != (bucket, bucket):
+            canvas = np.pad(img, ((0, bucket - sh), (0, bucket - sw), (0, 0)), mode="edge")
+        else:
+            canvas = img
+        return canvas, (sh, sw), bucket
+
+    def _refuse_unported(self, image, family: str) -> None:
+        if family not in STANDARD_FAMILIES:
+            raise NotImplementedError(f"model family {family} is not ported to PyTorch yet")
+        if self._wants_hdr(image):
+            raise NotImplementedError(
+                "16-bit PNG uploads take the HDR deblur pre-pass, which is not ported to "
+                "PyTorch yet (SERVE_HDR_DEBLUR=0 serves them on the 8-bit path)"
+            )
+
+    def _wants_hdr(self, image) -> bool:
+        if not self.config.hdr_deblur or not isinstance(image, (bytes, bytearray)):
+            return False
+        try:
+            return (
+                imageio.sniff_format(bytes(image[:32])) == "png"
+                and imageio.decode_bit_depth(bytes(image[:32])) >= 16
+            )
+        except ValueError:
+            return False
+
+    def _decode(self, image, options: dict) -> tuple[np.ndarray, str | None]:
+        if isinstance(image, (bytes, bytearray)):
+            decoded = imageio.decode_image(bytes(image))
+            pixels, fmt = decoded.pixels, decoded.format
+        else:
+            pixels, fmt = np.asarray(image, dtype=np.uint8), options.get("format")
+        if pixels.ndim == 2:
+            pixels = np.repeat(pixels[:, :, None], 3, axis=2)
+        if pixels.shape[-1] == 4:
+            pixels = pixels[:, :, :3]
+        return pixels, fmt
+
+    # -------------------------------------------------------------- public
+
+    def restore(
+        self,
+        image: bytes | np.ndarray,
+        user_prompt: str | None = None,
+        user_context: dict | None = None,
+        options: dict | None = None,
+    ) -> dict:
+        options = options or {}
+        user_context = user_context or {}
+        family = options.get("model", "restore-unet")
+        self._refuse_unported(image, family)
+        start = time.perf_counter()
+        timings: dict = {}
+
+        with self._tracer.span(
+            "restorator.restore",
+            {
+                "restoration.user_id": user_context.get("userId", "anonymous"),
+                "restoration.has_user_prompt": bool(user_prompt),
+            },
+        ) as span:
+            try:
+                pixels, fmt = self._decode(image, options)
+
+                # classification, conditioning and restoration run as one
+                # device program; its time is attributed to classify_ms
+                t = time.perf_counter()
+                canvas, (sh, sw), bucket = self._canonicalize(pixels)
+                is_jpeg = fmt == "jpeg"
+                # planes whenever the canvas goes straight to the native JPEG
+                # encoder; a host resize afterwards, or the Pillow codec,
+                # needs RGB
+                egress = (
+                    "yuv420"
+                    if (
+                        self.config.restore_egress == "yuv420"
+                        and (sh, sw) == pixels.shape[:2]
+                        and imageio.native_available()
+                    )
+                    else "rgb"
+                )
+                if self.batcher is not None:
+                    restored_canvas, score_vec, engine_meta = self.batcher.submit(
+                        canvas, (sh, sw), is_jpeg, family, egress
+                    )
+                else:
+                    out_batch, score_batch, engine_meta = self.engine.restore_batch(
+                        canvas[None],
+                        np.asarray([[sh, sw]], np.int32),
+                        np.asarray([is_jpeg], np.float32),
+                        family,
+                        egress,
+                    )
+                    if egress == "yuv420":
+                        restored_canvas = tuple(p[0] for p in out_batch)
+                    else:
+                        restored_canvas = out_batch[0]
+                    score_vec = score_batch[0]
+                degradation = {k: float(v) for k, v in zip(DEGRADATION_ORDER, score_vec)}
+                timings["classify_ms"] = round((time.perf_counter() - t) * 1000, 3)
+                span.add_event("classification_complete", {"classification.duration_ms": timings["classify_ms"]})
+
+                t = time.perf_counter()
+                enhanced_prompt = self.prompt_enhancer.enhance(degradation, user_prompt, options)
+                timings["prompt_ms"] = round((time.perf_counter() - t) * 1000, 3)
+                span.add_event("prompt_enhancement_complete", {"prompt.duration_ms": timings["prompt_ms"]})
+
+                # host post: crop the letterbox, restore the native size
+                t = time.perf_counter()
+                if egress == "yuv420":
+                    py, pcb, pcr = restored_canvas
+                    yuv_planes = (
+                        py[:sh, :sw],
+                        pcb[: (sh + 1) // 2, : (sw + 1) // 2],
+                        pcr[: (sh + 1) // 2, : (sw + 1) // 2],
+                    )
+                    restored = None
+                else:
+                    yuv_planes = None
+                    restored = restored_canvas[:sh, :sw]
+                    if (sh, sw) != pixels.shape[:2]:
+                        restored = imageio.resize_rgb8(restored, pixels.shape[:2])
+                timings["restore_ms"] = round((time.perf_counter() - t) * 1000, 3)
+                timings["total_ms"] = round((time.perf_counter() - start) * 1000, 3)
+                span.add_event("restoration_complete", {"restoration.duration_ms": timings["restore_ms"]})
+
+                issues = [{"type": k, "confidence": v} for k, v in degradation.items() if v > 0.3]
+                device_s = engine_meta.get("deviceSeconds", 0.0)
+                counters = get_counters()
+                counters.inc("restorations_total")
+                counters.inc("device_seconds_restore", device_s)
+                if yuv_planes is not None:
+                    jpeg_out = imageio.encode_jpeg_ycbcr420(*yuv_planes, quality=85)
+                else:
+                    jpeg_out = imageio.encode_jpeg(restored, quality=85)
+                result = {
+                    "success": True,
+                    "restoredImage": base64.b64encode(jpeg_out).decode("ascii"),
+                    "degradationAnalysis": degradation,
+                    "enhancedPrompt": enhanced_prompt,
+                    "timings": timings,
+                    "metadata": {
+                        "providerRequestId": engine_meta.get("engineRequestId"),
+                        "billedTokens": None,
+                        "deviceSeconds": device_s,
+                        "fetchSeconds": engine_meta.get("fetchSeconds"),
+                        "model": engine_meta.get("family"),
+                        "sizeBucket": bucket,
+                        "processingTime": timings["total_ms"],
+                        "classificationIssues": issues,
+                    },
+                }
+                span.set_attributes(
+                    {
+                        "restoration.success": True,
+                        "restoration.total_duration_ms": timings["total_ms"],
+                        "restoration.device_seconds": device_s,
+                    }
+                )
+                return result
+
+            except Exception as error:
+                timings["total_ms"] = round((time.perf_counter() - start) * 1000, 3)
+                span.record_exception(error)
+                span.set_status("ERROR", str(error))
+                self.logger.error(
+                    "Restoration failed",
+                    {"userId": user_context.get("userId"), "error": str(error), "timings": timings},
+                )
+                return {
+                    "success": False,
+                    "error": {
+                        "message": str(error),
+                        "code": getattr(error, "code", "RESTORATION_FAILED"),
+                        "type": _classify_error(error),
+                    },
+                    "timings": timings,
+                    "metadata": {
+                        "processingTime": timings["total_ms"],
+                        "failureStage": _failure_stage(timings),
+                    },
+                }

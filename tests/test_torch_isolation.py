@@ -1,0 +1,91 @@
+"""PyTorch port: package isolation and device rules.
+
+The port imports neither ``jax`` nor anything of the JAX package (checked
+in a fresh interpreter, by exact top-level name: the port's own name starts
+with the JAX package's); its entry points run on CUDA unless the caller
+asks for the CPU, and raise without a card; chip_smoke.py refuses to run
+without a card or outside a checkout."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from image_restoration_platform_tpu_torch.config import ServingConfig
+from image_restoration_platform_tpu_torch.serve import MicroBatcher, RestorationEngine, RestoratorService
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = "image_restoration_platform_tpu_torch"
+JAX_PKG = "image_restoration_platform_tpu"
+
+_PROBE = f"""
+import importlib, pkgutil, sys
+import {PORT}
+names = [m.name for m in pkgutil.walk_packages({PORT}.__path__, "{PORT}.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}.")
+)
+print(len(names), leaked)
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    count, leaked = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 20  # every module of the port was imported
+    assert leaked == "[]"
+
+
+def _imported_roots(path: str) -> set[str]:
+    tree = ast.parse(open(path).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_port_source_names_jax():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, PORT)):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        roots = _imported_roots(path)
+        assert "jax" not in roots and JAX_PKG not in roots, path
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RestorationEngine()
+    engine = RestorationEngine(device="cpu", serving_config=ServingConfig(size_buckets=(64,)))
+    assert engine.device.type == "cpu" and engine.dtype == torch.float32
+    with pytest.raises(RuntimeError):
+        RestoratorService(engine=engine)
+    with pytest.raises(RuntimeError):
+        MicroBatcher(engine)
+    RestoratorService(engine=engine, device="cpu")
+
+
+def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    here = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert here.returncode != 0 and '"ok"' not in here.stdout
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    alone = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert alone.returncode != 0 and '"ok"' not in alone.stdout
