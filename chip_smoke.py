@@ -12,11 +12,13 @@ failure (exit code 1):
 1. report: the card's name and power limit, torch and CUDA versions, and the
    image codec the port's imageio got (native libjpeg/libpng/libwebp or
    Pillow);
-2. kernels: builds every CUDA source of the restore path from csrc/ (one
-   nvcc each, all started together), holds each kernel against its plain
-   PyTorch version on the card at the path's shapes, and times the kernel,
-   the plain version and the library call that computes the same function
-   (CUDA events, median of 20 after warm-up), beside the computed bound;
+2. kernels: builds the restore path's one CUDA source from csrc/ with nvcc,
+   holds the kernel against its plain PyTorch version on the card at the
+   path's shapes (unit-variance and peaked-logit inputs), and times the
+   kernel, the plain version and the library call that computes the same
+   function beside the computed bound (CUDA events around 10 back-to-back
+   calls queued behind a sleep kernel, so host dispatch is not timed; median
+   of 20 such groups after warm-up);
 3. slice: RestoratorService + MicroBatcher + RestorationEngine(bf16) with
    the shipped restore-unet weights serve concurrent 256 and 512 requests
    (clean, low-quality JPEG, motion-blurred), checks every result, checks
@@ -50,12 +52,19 @@ PKG = "image_restoration_platform_tpu_torch"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
-KERNEL_SHAPES = [  # (shape [N,H,T,D], dtype, tolerance, where the path uses it)
-    ((1, 4, 1024, 64), "bfloat16", 0.02, "restore-unet 256 b1"),
-    ((8, 4, 4096, 64), "bfloat16", 0.02, "restore-unet 512 b8"),
-    ((2, 2, 1024, 32), "bfloat16", 0.02, "restore-unet-small 64 b2"),
-    ((1, 4, 1024, 64), "float32", 1e-4, "restore-unet 256 b1, f32 engine"),
+KERNEL_SHAPES = [  # (shape [N,H,T,D], dtype, where the path uses it)
+    ((1, 4, 1024, 64), "bfloat16", "restore-unet 256 b1"),
+    ((8, 4, 4096, 64), "bfloat16", "restore-unet 512 b8"),
+    ((2, 2, 1024, 32), "bfloat16", "restore-unet-small 64 b2"),
+    ((1, 4, 1024, 64), "float32", "restore-unet 256 b1, f32 engine"),
 ]
+# bf16 is held to ops.cuda.attention.bf16_parity_bar: 0.02 (the reference's
+# own) and at most 4 bf16 ulps of max |plain|, since at T = 4096 with
+# unit-variance inputs a typical output is ~0.03. f32 is held to 1e-4.
+F32_ATOL = 1e-4
+# (q scale, v scale): unit-variance inputs, and peaked logits (std 4, the
+# online softmax's running max jumps between tiles) with outputs kept below 1
+INPUT_SCALES = {"randn": (1.0, 1.0), "peaked": (4.0, 0.125)}
 # bf16 card output vs the port's f32 CPU run of the same canvas. bf16 keeps 8
 # significant bits, so the ingress x = k/255 alone moves up to ~0.5 level
 # near 1.0, and the UNet runs ~40 layers in bf16; the port's CPU bf16 run
@@ -134,18 +143,26 @@ def build_requests(np, imageio, motion_psf):
 # ----------------------------------------------------------------- timing
 
 
-def time_ms(torch, fn, runs: int = 20, warmup: int = 3) -> float:
+def time_ms(torch, fn, groups: int = 20, calls: int = 10, warmup: int = 3) -> float:
+    """Device ms per call of ``fn``: each group queues ``calls`` calls behind
+    a sleep kernel, so they run back to back on the card with no gap for the
+    host's dispatch, between one pair of events; median over the groups."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(runs):
+    times, behind = [], 0
+    for _ in range(groups):
+        torch.cuda._sleep(20_000_000)  # ~10 ms of clock cycles: the host queues the group meanwhile
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
+        behind += start.query()  # the card reached the group before the host had queued it
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
+    if behind:
+        print(f"time_ms: the host fell behind the card in {behind} of {groups} groups", flush=True)
     return statistics.median(times)
 
 
@@ -166,23 +183,30 @@ def phase_kernels(torch, report):
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for shape, dtype, tol, where in KERNEL_SHAPES:
+    for shape, dtype, where in KERNEL_SHAPES:
         dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(3))
-        out = A.flash_kernel(q, k, v)
-        torch.cuda.synchronize()
-        err = float((out.float() - A.attention_reference(q, k, v).float()).abs().max())
+        base = [torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(3)]
+        checks = {}
+        for inputs, (q_scale, v_scale) in INPUT_SCALES.items():
+            q, k, v = base[0] * q_scale, base[1], base[2] * v_scale
+            out = A.flash_kernel(q, k, v)
+            ref = A.attention_reference(q, k, v)
+            err = float((out.float() - ref.float()).abs().max())
+            tol = A.bf16_parity_bar(ref) if dt == torch.bfloat16 else F32_ATOL
+            checks[inputs] = {"max_abs_err": err, "tolerance": tol, "max_abs_plain": float(ref.float().abs().max())}
+        q, k, v = base
         bound, bound_by = attention_bound_ms(shape, dtype)
         row = {
             "kernel": "flash_attention", "shape": list(shape), "dtype": dtype, "path": where,
-            "max_abs_err": err, "tolerance": tol,
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values()), "checks": checks,
             "ms": time_ms(torch, lambda: A.flash_kernel(q, k, v)),
             "plain_ms": time_ms(torch, lambda: A.attention_reference(q, k, v)),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
             "bound_ms": bound, "bound_by": bound_by,
         }
         print(json.dumps(row), flush=True)
-        check(err < tol, f"flash attention {shape} {dtype}: max |err| {err} >= {tol}")
+        for inputs, c in checks.items():
+            check(c["max_abs_err"] <= c["tolerance"], f"flash attention {shape} {dtype} {inputs}: {c}")
         rows.append(row)
     report["kernel_checks"] = rows
     return rows
@@ -289,7 +313,7 @@ def phase_throughput(torch, np, report, svc, engine, reqs, card):
         svc.restore(data)
     lat = []
     t0 = time.perf_counter()
-    for _ in range(20):
+    for _ in range(60):
         t = time.perf_counter()
         check(svc.restore(data)["success"], "256 b1 request failed")
         lat.append(time.perf_counter() - t)
@@ -299,7 +323,7 @@ def phase_throughput(torch, np, report, svc, engine, reqs, card):
     # sending back to back keep batches of eight forming
     data = reqs["clean512"][0]
     counters = get_counters()
-    clients, rounds = 16, 4
+    clients, rounds = 16, 8
     barrier = threading.Barrier(clients)
     lat512: list[float] = []
     lock = threading.Lock()
@@ -396,21 +420,17 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"python {sys.version.split()[0]}", flush=True)
 
-    # phase 1+2a: the kernels' nvcc builds and the codec build, all at once
+    report["codec"] = imageio.codec()
+    print(f"image codec: {report['codec']}", flush=True)
+
+    # phase 2a: the kernel's nvcc build
     t = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        codec = pool.submit(imageio.codec)
-        build.build([A.SOURCE])
-        codec = codec.result()
+    log = build.compile_source(A.SOURCE)
     report["build_s"] = time.perf_counter() - t
-    report["nvcc_s"] = dict(build.build_seconds)
-    report["codec"] = codec
-    print(f"image codec: {codec}", flush=True)
-    print(f"kernel build: {json.dumps(build.build_seconds)} (wall {report['build_s']:.1f} s)", flush=True)
-    for source, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {source}: {line.strip()}", flush=True)
+    print(f"kernel build: {A.SOURCE} {report['build_s']:.1f} s", flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  {line.strip()}", flush=True)
 
     rows = phase_kernels(torch, report)
     launches = phase_slice(torch, np, report, card)

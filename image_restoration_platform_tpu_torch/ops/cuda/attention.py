@@ -27,6 +27,16 @@ KERNEL_HEAD_DIMS = (32, 64)
 SOURCE = "flash_attention.cu"
 
 
+def bf16_parity_bar(ref: torch.Tensor) -> float:
+    """max |kernel - plain| allowed on bf16 outputs: 0.02 (the reference's
+    own bar, tests/test_pallas_attention.py), and at most 4 bf16 units in
+    the last place of max |ref|. At T = 4096 and unit-variance inputs a
+    typical output is ~0.03, as large as 0.02 itself; the second term keeps
+    the bar relative to the outputs."""
+    peak = float(ref.detach().float().abs().max())
+    return min(0.02, 4.0 * 2.0 ** (math.floor(math.log2(peak)) - 7))
+
+
 def _check_tokens(t: int) -> None:
     if t % min(BQ, t) != 0:
         raise ValueError(f"token count {t} must be a multiple of the {BQ} query block")

@@ -16,7 +16,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -29,9 +28,6 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# per source: seconds nvcc took in this process (0.0 when reused) and its log
-build_seconds: dict[str, float] = {}
-build_logs: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -51,37 +47,21 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 
 
-def _start(source: str):
-    """Start nvcc for ``source`` unless its library exists; returns
-    (path, process or None, tmp path, start time)."""
+def compile_source(source: str) -> str:
+    """Run nvcc for ``source`` unless its library exists; returns nvcc's
+    log (ptxas register and spill counts), empty when the library was reused."""
     path = library_path(source)
     if os.path.exists(path):
-        return path, None, None, time.perf_counter()
+        return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return path, proc, tmp, time.perf_counter()
-
-
-def _finish(source: str, path: str, proc, tmp: str | None, t0: float) -> str:
-    if proc is None:
-        build_seconds.setdefault(source, 0.0)
-        return path
-    log, _ = proc.communicate()
-    build_seconds[source] = time.perf_counter() - t0
-    build_logs[source] = log
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source} (exit {proc.returncode}):\n{log}")
     os.replace(tmp, path)  # atomic: concurrent processes never load a partial file
-    return path
-
-
-def build(sources: list[str] | tuple[str, ...]) -> dict[str, str]:
-    """Build every source in parallel (one nvcc each, all started together);
-    returns {source: library path}."""
-    started = {s: _start(s) for s in sources}
-    return {s: _finish(s, *started[s]) for s in sources}
+    return log
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -89,5 +69,6 @@ def load(source: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            lib = _libs[source] = ctypes.CDLL(build([source])[source])
+            compile_source(source)
+            lib = _libs[source] = ctypes.CDLL(library_path(source))
         return lib
