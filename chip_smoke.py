@@ -12,21 +12,35 @@ failure (exit code 1):
 1. report: the card's name and power limit, torch and CUDA versions, and the
    image codec the port's imageio got (native libjpeg/libpng/libwebp or
    Pillow);
-2. kernels: builds the restore path's one CUDA source from csrc/ with nvcc,
-   holds the kernel against its plain PyTorch version on the card at the
-   path's shapes (unit-variance and peaked-logit inputs), and times the
-   kernel, the plain version and the library call that computes the same
-   function beside the computed bound (CUDA events around 10 back-to-back
-   calls queued behind a sleep kernel, so host dispatch is not timed; median
-   of 20 such groups after warm-up);
+2. kernels: builds every CUDA source under csrc/ with nvcc (one process per
+   source, started together), holds each kernel against its plain PyTorch
+   version on the card at its path's shapes (attention: unit-variance and
+   peaked-logit inputs; blend: the 2K -> 4K grid, a clamped grid, overlap =
+   T/2 and a single tile), and times the kernel, the plain version and the
+   library call that computes the same function beside the computed bound
+   (CUDA events around 10 back-to-back calls queued behind a sleep kernel,
+   so host dispatch is not timed; median of 20 such groups after warm-up);
 3. slice: RestoratorService + MicroBatcher + RestorationEngine(bf16) with
-   the shipped restore-unet weights serve concurrent 256 and 512 requests
-   (clean, low-quality JPEG, motion-blurred), checks every result, checks
-   that each UNet forward at a bucket <= 512 launched the attention kernel
-   once, checks the deblock/deblur fire decisions on those canvases, and
-   holds one 256 request's card output against the port's CPU f32 run;
+   the shipped weights serve, path by path with the kernels' launch counts
+   set to 0 before each and read after it:
+   - restore: concurrent 256 and 512 requests (clean, low-quality JPEG,
+     motion-blurred); every result is checked, each UNet forward at a bucket
+     <= 512 launched the attention kernel once, the deblock/deblur fire
+     decisions are checked on those canvases, and one 256 request's card
+     output is held against the port's CPU f32 run;
+   - super-resolution: a 2048x2048 upload through sr-x2 (tiled, 81 tiles,
+     4096x4096 out), a 1500x1100 upload (letterboxed, resized on the host on
+     the way out), a 384 upload (direct), one sr-x4 request, and
+     ``engine.sr_tiled(output="yuv420")``; one blend launch per tiled call
+     and no attention launch; a 640 canvas (3x3 tiles) on the card in bf16
+     is held against the port's CPU f32 run;
+   - diffusion and fusion: a 256 and a 512 diffusion-restore request (two
+     attention launches per 256 batch, none at 512) and ``restore_fusion``
+     of three 512 captures (one launch);
 4. throughput: steady-state images/s and p50 request latency at 256 b1 and
-   512 b8, end to end through RestoratorService, and the engine's step time.
+   512 b8, end to end through RestoratorService, and the engine's step time;
+   warm wall time of one 2048 -> 4096 sr-x2 request and of ``engine.sr_tiled``
+   alone, with the profiler's split of one such step.
 
 ``--report PATH`` also writes the full report as JSON to PATH. The last
 lines of standard output are the card line, the kernels JSON line, and
@@ -36,6 +50,7 @@ lines of standard output are the card line, the kernels JSON line, and
 from __future__ import annotations
 
 import argparse
+import base64
 import json
 import os
 import statistics
@@ -71,6 +86,21 @@ INPUT_SCALES = {"randn": (1.0, 1.0), "peaked": (4.0, 0.125)}
 # against its CPU f32 run measured mean 0.48-0.53 levels and 99.9th
 # percentile 3 levels on such canvases. Scores are f32 on both sides.
 CPU_MEAN_LEVELS, CPU_P999_LEVELS, CPU_SCORES_ATOL = 1.0, 4.0, 1e-4
+
+# the blend: (canvas h x w, tile, overlap, scale, where the path uses it);
+# tiles of T*scale land at scaled origins, as ops/tile.py tiled_apply calls it
+BLEND_MAIN = ((2048, 2048), 256, 32, 2)
+BLEND_SHAPES = [
+    (*BLEND_MAIN, "sr-x2 2048 -> 4096, 81 tiles"),
+    ((1024, 1024), 256, 32, 2, "sr-x2 1024 bucket, clamped last tile"),
+    ((1024, 1024), 256, 128, 1, "overlap = T/2"),
+    ((100, 68), 32, 8, 1, "clamped in both axes"),
+    ((64, 56), 32, 24, 1, "four tiles cover a row"),
+    ((256, 256), 256, 32, 2, "single tile"),
+]
+# the reference's own bar on a 0..255 range (tests/test_pallas_blend.py); the
+# kernel repeats the plain fold's f32 arithmetic, so the error should be 0
+BLEND_ATOL = 1e-3
 
 
 def fail(message: str) -> None:
@@ -113,6 +143,26 @@ def _photo(np, seed: int, size: int):
         tex += np.sin(2 * np.pi * f * (xx * np.cos(a) + yy * np.sin(a)) + ph)
     img = img + 0.12 * tex[..., None] / np.sqrt(12.0) + rng.normal(0, 0.03, img.shape)
     return np.clip(img, 0, 1).astype(np.float32)
+
+
+def _photo_large(np, seed: int, h: int, w: int):
+    """A photo-like [h, w, 3] u8 image made at full size in a few passes:
+    Voronoi cells from a 1/8-size label map (sharp edges), a smooth colour
+    field, sinusoid texture and sensor noise."""
+    rng = np.random.default_rng(seed)
+    cells = _photo(np, seed, 256)[: -(-h // 8), : -(-w // 8)]
+    img = np.repeat(np.repeat(cells, 8, axis=0), 8, axis=1)[:h, :w].copy()
+    yy = np.arange(h, dtype=np.float32)[:, None]
+    xx = np.arange(w, dtype=np.float32)[None, :]
+    for c in range(3):
+        img[..., c] += 0.15 * np.sin(xx / (90.0 + 20 * c)) * np.cos(yy / (70.0 + 15 * c))
+    tex = np.zeros((h, w), np.float32)
+    for _ in range(6):
+        f, a, ph = rng.uniform(0.02, 0.3), rng.uniform(0, np.pi), rng.uniform(0, 6.28)
+        tex += np.sin(2 * np.pi * f * (xx * np.cos(a) + yy * np.sin(a)) + ph)
+    img += 0.08 * tex[..., None] / np.sqrt(6.0)
+    img += rng.normal(0, 0.02, img.shape).astype(np.float32)
+    return np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
 
 
 def _motion_blur(np, img, psf):
@@ -174,7 +224,69 @@ def attention_bound_ms(shape, dtype: str) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def blend_bound_ms(n_tiles: int, t: int, c: int, out_h: int, out_w: int) -> tuple[float, str]:
+    nbytes = 4 * (n_tiles * t * t * c + out_h * out_w * c)  # tiles read, canvas written, f32
+    flops = 3 * n_tiles * t * t * c  # multiply, add, and the window sum
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 # ----------------------------------------------------------------- phases
+
+
+def phase_blend_kernel(torch, report):
+    from image_restoration_platform_tpu_torch.ops import tile as T
+    from image_restoration_platform_tpu_torch.ops.cuda import blend as B
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for hw, tile, overlap, scale, where in BLEND_SHAPES:
+        ys, xs = T.tile_grid(hw[0], tile, tile - overlap), T.tile_grid(hw[1], tile, tile - overlap)
+        t = tile * scale
+        tiles = torch.rand((len(ys) * len(xs), t, t, 3), generator=gen, device="cuda") * 255.0
+        out_hw = (hw[0] * scale, hw[1] * scale)
+        out_ys, out_xs = tuple(y * scale for y in ys), tuple(x * scale for x in xs)
+        out = B.blend_kernel(tiles, out_hw, out_ys, out_xs)
+        torch.cuda.synchronize()
+        ref = T.blend_tiles(tiles, out_hw, out_ys, out_xs)
+        check(tuple(out.shape) == (*out_hw, 3) and bool(torch.isfinite(out).all()), f"blend {where}: output")
+        bound, bound_by = blend_bound_ms(tiles.shape[0], t, 3, *out_hw)
+        row = {
+            "kernel": "blend_tiles", "canvas": list(hw), "tile": tile, "overlap": overlap, "scale": scale,
+            "tiles": tiles.shape[0], "path": where, "max_abs_err": float((out - ref).abs().max()),
+            "tolerance": BLEND_ATOL,
+            "ms": time_ms(torch, lambda: B.blend_kernel(tiles, out_hw, out_ys, out_xs)),
+            "plain_ms": time_ms(torch, lambda: T.blend_tiles(tiles, out_hw, out_ys, out_xs), groups=10, calls=1),
+            "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+        }
+        if (hw, tile, overlap, scale) == BLEND_MAIN:
+            # the library yardstick: F.fold computes the same overlap-add
+            # where the grid is uniform, as it is here (stride 448 divides
+            # 4096 - 512). The summed window depends on the grid alone and is
+            # folded once outside the timing, like the kernel's window table;
+            # windowing, layout, fold and divide are timed. Nothing in the
+            # port calls fold.
+            stride = (tile - overlap) * scale
+            check(out_ys == tuple(range(0, out_hw[0] - t + 1, stride)), "fold needs a uniform grid")
+            window = torch.from_numpy(T._hann_window(t)).cuda()
+            wsum = F.fold(window.reshape(1, t * t, 1).expand(1, t * t, tiles.shape[0]), out_hw,
+                          kernel_size=t, stride=stride)[0]
+
+            def fold():
+                cols = (tiles * window[None, :, :, None]).permute(3, 1, 2, 0).reshape(1, 3 * t * t, -1)
+                return (F.fold(cols, out_hw, kernel_size=t, stride=stride)[0] / wsum).permute(1, 2, 0)
+
+            row["library_max_abs_err"] = float((fold() - ref).abs().max())
+            check(row["library_max_abs_err"] <= BLEND_ATOL, f"F.fold disagrees with the plain fold: {row}")
+            row["library_ms"] = time_ms(torch, fold, groups=10, calls=3)
+        print(json.dumps(row), flush=True)
+        check(row["max_abs_err"] <= BLEND_ATOL, f"blend kernel {where}: {row}")
+        rows.append(row)
+        del tiles, out, ref
+    torch.cuda.empty_cache()
+    report["blend_checks"] = rows
+    return rows
 
 
 def phase_kernels(torch, report):
@@ -253,7 +365,7 @@ def phase_slice(torch, np, report, card):
             scores = np.asarray([res["degradationAnalysis"][k] for k in sorted(res["degradationAnalysis"])])
             check(scores.shape == (7,) and np.isfinite(scores).all(), f"{name}: scores {scores}")
             src = imageio.decode_image(reqs[name][0])
-            out = imageio.decode_image(__import__("base64").b64decode(res["restoredImage"]))
+            out = _decode_result(imageio, res)
             check((out.height, out.width) == (src.height, src.width), f"{name}: output {out.height}x{out.width}")
         check(forwards > 0 and launches == forwards,
               f"attention launches {launches} != UNet forwards at buckets <= 512 ({forwards})")
@@ -296,9 +408,162 @@ def phase_slice(torch, np, report, card):
 
         report["slice"] = {"launches": launches, "forwards": forwards, "batches": batches,
                            "counters": delta, "fires": fires, "card_vs_cpu": cmp}
+        sr_reqs, blend_launches = phase_sr(torch, np, report, svc, engine, cfg)
+        diffusion_launches = phase_diffusion_fusion(np, report, svc, reqs)
         phase_throughput(torch, np, report, svc, engine, reqs, card)
+        phase_sr_throughput(torch, np, report, svc, engine, sr_reqs, card)
     finally:
         batcher.shutdown()
+    return {"flash_attention": {"restore": launches, "diffusion_fusion": diffusion_launches},
+            "blend_tiles": {"super_resolution": blend_launches}}
+
+
+def _counter_delta(before: dict, after: dict) -> dict:
+    return {k: after.get(k, 0.0) - before.get(k, 0.0) for k in after if k not in ("uptime_s", "images_per_sec")}
+
+
+def _decode_result(imageio, res):
+    return imageio.decode_image(base64.b64decode(res["restoredImage"]))
+
+
+def phase_sr(torch, np, report, svc, engine, cfg):
+    """The super-resolution path through RestoratorService, its blend
+    launches counted from 0, and the card's bf16 against the CPU's f32."""
+    from image_restoration_platform_tpu_torch import imageio
+    from image_restoration_platform_tpu_torch.models.weights import weights_path
+    from image_restoration_platform_tpu_torch.obs.metrics import get_counters
+    from image_restoration_platform_tpu_torch.ops.cuda.attention import flash_kernel
+    from image_restoration_platform_tpu_torch.ops.cuda.blend import blend_kernel
+    from image_restoration_platform_tpu_torch.serve import RestorationEngine
+
+    for family in ("sr-x2", "sr-x4"):
+        check(os.path.exists(weights_path(family)), f"weights/{family}.npz missing")
+    # (encoded upload, family, expected output h x w, tiled?)
+    sr_reqs = {
+        "sr2048": (imageio.encode_png(_photo_large(np, 11, 2048, 2048)), "sr-x2", (4096, 4096), True),
+        "sr1500x1100": (imageio.encode_png(_photo_large(np, 12, 1500, 1100)), "sr-x2", (3000, 2200), True),
+        "sr384": (imageio.encode_png(_photo_large(np, 13, 384, 384)), "sr-x2", (768, 768), False),
+        "sr4_300x200": (imageio.encode_jpeg(_photo_large(np, 14, 300, 200), quality=90), "sr-x4", (1200, 800), False),
+    }
+    t = time.perf_counter()
+    check(svc.restore(sr_reqs["sr384"][0], options={"model": "sr-x2"})["success"], "SR warm-up failed")
+    warm = svc.restore(sr_reqs["sr2048"][0], options={"model": "sr-x2"})  # model load, cuDNN plans, kernel bind
+    check(warm["success"], f"tiled SR warm-up failed: {warm.get('error')}")
+    report["sr_warmup_s"] = time.perf_counter() - t
+
+    counters = get_counters()
+    before = counters.snapshot()
+    blend_kernel.launches = 0
+    flash_kernel.launches = 0
+    results = {name: svc.restore(data, options={"model": family}) for name, (data, family, _, _) in sr_reqs.items()}
+    canvas2048 = imageio.decode_image(sr_reqs["sr2048"][0]).pixels
+    (py, pcb, pcr), meta = engine.sr_tiled(canvas2048, "sr-x2", output="yuv420")
+    blend_launches, attn_launches = blend_kernel.launches, flash_kernel.launches
+    delta = _counter_delta(before, counters.snapshot())
+    tiled_calls = int(sum(v for k, v in delta.items() if k.startswith("sr_tiled_calls.")))
+    direct_calls = int(sum(v for k, v in delta.items() if k.startswith("sr_batches.")))
+
+    for name, res in results.items():
+        _, family, out_hw, _ = sr_reqs[name]
+        check(res.get("success") is True, f"{name}: {res.get('error')}")
+        out = _decode_result(imageio, res)
+        check((out.height, out.width) == out_hw, f"{name}: output {out.height}x{out.width}, expected {out_hw}")
+        md = res["metadata"]
+        check(md["scaleFactor"] == int(family[-1]) and md["outputSize"] == list(out_hw) and md["model"] == family,
+              f"{name}: metadata {md}")
+        check(res["degradationAnalysis"] == {} and md["classificationIssues"] == [], f"{name}: analysis not empty")
+        # the output is the input, larger: its box-downsample stays near the upload
+        src = imageio.decode_image(sr_reqs[name][0]).pixels.astype(np.float32)
+        s = int(family[-1])
+        down = out.pixels.astype(np.float32).reshape(src.shape[0], s, src.shape[1], s, 3).mean(axis=(1, 3))
+        err = float(np.abs(down - src).mean())
+        check(err < 10.0, f"{name}: box-downsampled output is {err:.2f} levels from the upload")
+        results[name] = {"sizeBucket": md["sizeBucket"], "deviceSeconds": md["deviceSeconds"],
+                         "total_ms": res["timings"]["total_ms"], "downsample_mean_abs_levels": err}
+    check(results["sr2048"]["sizeBucket"] == 2048 and results["sr1500x1100"]["sizeBucket"] == 2048,
+          f"tiled requests took buckets {results}")
+    check(py.shape == (4096, 4096) and pcb.shape == pcr.shape == (2048, 2048) and py.dtype == np.uint8,
+          f"sr_tiled yuv420 planes {py.shape} {pcb.shape} {pcr.shape}")
+    check(tiled_calls == 3 and direct_calls == 2, f"SR calls: tiled {tiled_calls}, direct {direct_calls}")
+    check(blend_launches == tiled_calls, f"blend launches {blend_launches} != sr_tiled calls {tiled_calls}")
+    check(attn_launches == 0, f"the SR path launched attention {attn_launches} times")
+    # planes against the RGB request's JPEG: same image through two egresses
+    rgb = _decode_result(imageio, svc.restore(sr_reqs["sr2048"][0], options={"model": "sr-x2"})).pixels
+    luma = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    plane_err = float(np.abs(py.astype(np.float32) - luma).mean())
+    check(plane_err < 3.0, f"yuv420 luma is {plane_err:.2f} levels from the RGB request's JPEG")
+    print(json.dumps({"sr_slice": {"requests": results, "sr_tiled_calls": tiled_calls, "sr_batch_calls": direct_calls,
+                                   "blend_launches": blend_launches, "attention_launches": attn_launches,
+                                   "yuv420_vs_rgb_jpeg_luma_levels": plane_err,
+                                   "egress": "yuv420" if imageio.native_available() else "rgb"}}), flush=True)
+
+    # --- card bf16 vs the port's own CPU f32 run of a 640 canvas (3 x 3 tiles)
+    canvas = _photo_large(np, 15, 640, 640)
+    out_gpu, _ = engine.sr_tiled(canvas, "sr-x2")
+    cpu_engine = RestorationEngine(device="cpu", dtype=torch.float32, serving_config=cfg)
+    out_cpu, _ = cpu_engine.sr_tiled(canvas, "sr-x2")
+    diff = np.abs(out_gpu.astype(np.int32) - out_cpu.astype(np.int32))
+    cmp = {"mean_levels": float(diff.mean()), "p99.9_levels": float(np.percentile(diff, 99.9)),
+           "max_levels": int(diff.max())}
+    print(json.dumps({"sr_card_bf16_vs_cpu_f32": cmp}), flush=True)
+    check(out_gpu.shape == (1280, 1280, 3), f"640 canvas output {out_gpu.shape}")
+    check(cmp["mean_levels"] <= CPU_MEAN_LEVELS and cmp["p99.9_levels"] <= CPU_P999_LEVELS,
+          f"SR card vs CPU output {cmp}")
+    report["sr_slice"] = {"requests": results, "blend_launches": blend_launches, "sr_tiled_calls": tiled_calls,
+                          "counters": delta, "card_vs_cpu": cmp}
+    return sr_reqs, blend_launches
+
+
+def phase_diffusion_fusion(np, report, svc, reqs):
+    """diffusion-restore at 256 (attention over T = 4096, once per sampler
+    step) and 512 (T = 16384: skipped), and a three-capture fusion at 512."""
+    from image_restoration_platform_tpu_torch import imageio
+    from image_restoration_platform_tpu_torch.models import get_family
+    from image_restoration_platform_tpu_torch.models.weights import weights_path
+    from image_restoration_platform_tpu_torch.obs.metrics import get_counters
+    from image_restoration_platform_tpu_torch.ops.cuda.attention import flash_kernel
+
+    check(os.path.exists(weights_path("diffusion-restore")), "weights/diffusion-restore.npz missing")
+    steps = get_family("diffusion-restore").config.sample_steps
+    fusion_images = [reqs["clean512"][0], reqs["jpeg512"][0], reqs["blur512"][0]]
+    options = {"model": "diffusion-restore"}
+    check(svc.restore(reqs["clean256"][0], options=options)["success"], "diffusion warm-up failed")
+
+    counters = get_counters()
+    before = counters.snapshot()
+    flash_kernel.launches = 0
+    d256 = svc.restore(reqs["jpeg256"][0], options=options)
+    after256 = flash_kernel.launches
+    d512 = svc.restore(reqs["clean512"][0], options=options)
+    after512 = flash_kernel.launches
+    fused = svc.restore_fusion(fusion_images, "fuse these captures")
+    launches = flash_kernel.launches
+    delta = _counter_delta(before, counters.snapshot())
+
+    for name, res, src in (("diffusion256", d256, reqs["jpeg256"][0]), ("diffusion512", d512, reqs["clean512"][0]),
+                           ("fusion512", fused, fusion_images[0])):
+        check(res.get("success") is True, f"{name}: {res.get('error')}")
+        scores = np.asarray([res["degradationAnalysis"][k] for k in sorted(res["degradationAnalysis"])])
+        check(scores.shape == (7,) and np.isfinite(scores).all(), f"{name}: scores {scores}")
+        want, out = imageio.decode_image(src), _decode_result(imageio, res)
+        check((out.height, out.width) == (want.height, want.width), f"{name}: output {out.height}x{out.width}")
+        err = float(np.abs(out.pixels.astype(np.float32) - want.pixels.astype(np.float32)).mean())
+        check(err < 40.0, f"{name}: output is {err:.1f} levels from its input")
+    check(d256["metadata"]["model"] == "diffusion-restore" and d256["metadata"]["sizeBucket"] == 256, "diffusion meta")
+    check(fused["metadata"]["fusionInputs"] == 3 and len(fused["metadata"]["perImageAnalysis"]) == 3
+          and fused["metadata"]["sizeBucket"] == 512, f"fusion metadata {fused['metadata']}")
+    check(delta.get("diffusion_batches.256") == 1 and delta.get("diffusion_batches.512") == 1
+          and delta.get("fusion_batches.512") == 1, f"batches {delta}")
+    check(after256 == steps == 2, f"256 diffusion batch: {after256} attention launches, {steps} sampler steps")
+    check(after512 == after256, f"512 diffusion batch launched attention {after512 - after256} times")
+    check(launches == after512 + 1, f"fusion of three 512 captures: {launches - after512} attention launches")
+    out = {"attention_launches": {"diffusion256": after256, "diffusion512": after512 - after256,
+                                  "fusion512_k3": launches - after512},
+           "sampler_steps": steps,
+           "ms": {"diffusion256": d256["timings"]["total_ms"], "diffusion512": d512["timings"]["total_ms"],
+                  "fusion512_k3": fused["timings"]["total_ms"]}}
+    print(json.dumps({"diffusion_fusion_slice": out}), flush=True)
+    report["diffusion_fusion_slice"] = {**out, "counters": delta}
     return launches
 
 
@@ -394,6 +659,107 @@ def phase_throughput(torch, np, report, svc, engine, reqs, card):
     report["throughput"] = out
 
 
+def phase_sr_throughput(torch, np, report, svc, engine, sr_reqs, card):
+    """Warm wall time of one 2048 -> 4096 sr-x2 request and of
+    ``engine.sr_tiled`` alone, the step's parts timed apart on the card, and
+    the profiler's split of one step."""
+    from image_restoration_platform_tpu_torch import imageio
+    from image_restoration_platform_tpu_torch.models import srnet
+    from image_restoration_platform_tpu_torch.ops import tile as T
+    from image_restoration_platform_tpu_torch.ops.cuda.blend import blend_kernel
+    from image_restoration_platform_tpu_torch.serve.programs.egress import to_yuv420
+
+    out = {"card": card}
+    data = sr_reqs["sr2048"][0]
+    lat, dev = [], []
+    for _ in range(4):
+        t = time.perf_counter()
+        res = svc.restore(data, options={"model": "sr-x2"})
+        lat.append(time.perf_counter() - t)
+        check(res["success"], "2048 sr-x2 request failed")
+        dev.append(res["metadata"]["deviceSeconds"])
+    out["request_2048_ms"] = 1e3 * statistics.median(lat)
+    out["request_2048_engine_ms"] = 1e3 * statistics.median(dev)
+
+    canvas = imageio.decode_image(data).pixels
+    for output in ("rgb", "yuv420"):
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            engine.sr_tiled(canvas, "sr-x2", output=output)
+            times.append(time.perf_counter() - t)
+        out[f"sr_tiled_2048_{output}_ms"] = 1e3 * statistics.median(times)
+
+    # the step's parts, each alone on the card at the step's shapes: eleven
+    # SRNet forwards of eight 256 tiles (limiter inside), of which the limiter
+    # alone; one blend; one egress
+    model = engine.model("sr-x2")
+    cfg = model.config
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.rand((8, 256, 256, 3), generator=gen, device="cuda").to(engine.dtype)
+    forwards = -(-81 // 8)
+    with torch.inference_mode():
+        net_out = model(x)
+        raw = (net_out + 0.01 * torch.randn(net_out.shape, generator=gen, device="cuda")).to(engine.dtype)
+        blended = torch.rand((4096, 4096, 3), generator=gen, device="cuda") * 255.0
+        forward_ms = time_ms(torch, lambda: model(x), groups=5, calls=3)
+        limiter_ms = time_ms(torch, lambda: srnet.residual_limit(x, raw, cfg), groups=5, calls=3)
+        rgb_ms = time_ms(torch, lambda: torch.round(torch.clamp(blended, 0.0, 255.0)).to(torch.uint8),
+                         groups=5, calls=3)
+        yuv_ms = time_ms(torch, lambda: to_yuv420(blended[None]), groups=5, calls=3)
+    ys = T.tile_grid(2048, 256, 224)
+    tiles = torch.rand((81, 512, 512, 3), generator=gen, device="cuda") * 255.0
+    origins = tuple(y * 2 for y in ys)
+    blend_ms = time_ms(torch, lambda: blend_kernel(tiles, (4096, 4096), origins, origins), groups=5, calls=3)
+    del tiles, blended, raw, net_out
+    out["parts_ms"] = {"srnet_forward_b8": forward_ms, "srnet_forwards": forwards,
+                       "srnet_total": forwards * forward_ms,
+                       "limiter_b8": limiter_ms, "limiter_total": forwards * limiter_ms,
+                       "convolutions_and_rest_total": forwards * (forward_ms - limiter_ms),
+                       "blend": blend_ms, "egress_rgb": rgb_ms, "egress_yuv420": yuv_ms}
+
+    self_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))  # noqa: E731
+    cuda = torch.autograd.DeviceType.CUDA
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    )
+    with prof:
+        engine.sr_tiled(canvas, "sr-x2", output="rgb")
+    kernels = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == cuda and self_us(e) > 0 and not e.key.startswith("sr_tiled/")),
+        key=self_us, reverse=True,
+    )
+
+    def kind(name: str) -> str:
+        low = name.lower()
+        if "blend_tiles_kernel" in low:
+            return "blend"
+        if "memcpy" in low or "memset" in low:
+            return "copies"
+        if any(k in low for k in ("conv", "gemm", "cudnn", "cutlass", "xmma", "implicit", "nhwc", "nchw")):
+            return "convolutions"
+        return "elementwise"
+
+    split: dict = {}
+    for e in kernels:
+        split[kind(e.key)] = split.get(kind(e.key), 0.0) + self_us(e) / 1e3
+    busy_ms = sum(split.values())
+    step_ms = out["sr_tiled_2048_rgb_ms"]
+    out["profile_sr_tiled_2048"] = {
+        "kernel_ms_total": busy_ms if kernels else "not measured",
+        "kernel_launches": sum(e.count for e in kernels),
+        "by_kind_ms": split,
+        "blend_kernel_ms": split.get("blend", 0.0),
+        "device_idle_share": 1.0 - busy_ms / step_ms if kernels else "not measured",
+        "top": [{"name": e.key[:90], "device_ms": self_us(e) / 1e3, "count": e.count} for e in kernels[:15]],
+    }
+    print(json.dumps({"sr_throughput": {k: v for k, v in out.items() if not k.startswith("profile_")}}), flush=True)
+    print(json.dumps({"profile_sr_tiled_2048": {**out["profile_sr_tiled_2048"],
+                                                "top": out["profile_sr_tiled_2048"]["top"][:8]}}), flush=True)
+    report["sr_throughput"] = out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one NVIDIA card.")
     parser.add_argument("--report", help="also write the full report as JSON to this path")
@@ -411,6 +777,7 @@ def main() -> int:
 
     from image_restoration_platform_tpu_torch import imageio
     from image_restoration_platform_tpu_torch.ops.cuda import attention as A
+    from image_restoration_platform_tpu_torch.ops.cuda import blend as B
     from image_restoration_platform_tpu_torch.ops.cuda import build
 
     t_start = time.perf_counter()
@@ -423,32 +790,57 @@ def main() -> int:
     report["codec"] = imageio.codec()
     print(f"image codec: {report['codec']}", flush=True)
 
-    # phase 2a: the kernel's nvcc build
+    # phase 2a: the kernels' nvcc builds, one process per source, together
+    def timed_build(source):
+        t = time.perf_counter()
+        return source, build.compile_source(source), time.perf_counter() - t
+
     t = time.perf_counter()
-    log = build.compile_source(A.SOURCE)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE)))
     report["build_s"] = time.perf_counter() - t
-    print(f"kernel build: {A.SOURCE} {report['build_s']:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}", flush=True)
+    report["build_s_by_source"] = {source: seconds for source, _, seconds in builds}
+    for source, log, seconds in builds:
+        print(f"kernel build: {source} {seconds:.1f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {line.strip()}", flush=True)
 
     rows = phase_kernels(torch, report)
+    blend_rows = phase_blend_kernel(torch, report)
     launches = phase_slice(torch, np, report, card)
 
     main_row = next(r for r in rows if r["shape"] == [8, 4, 4096, 64])
+    blend_row = blend_rows[0]  # the 2K -> 4K grid the SR path runs
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
         "source": f"{PKG}/csrc/flash_attention.cu",
         "replaces": "image_restoration_platform_tpu/ops/pallas/attention.py:78",
-        "launches": launches,
+        "launches": sum(launches["flash_attention"].values()),
+        "launches_by_path": launches["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+    }, {
+        "name": "blend_tiles",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/blend_tiles.cu",
+        "replaces": "image_restoration_platform_tpu/ops/pallas/blend.py:133",
+        "launches": sum(launches["blend_tiles"].values()),
+        "launches_by_path": launches["blend_tiles"],
+        "max_abs_err": max(r["max_abs_err"] for r in blend_rows),
+        "ms": blend_row["ms"],
+        "plain_ms": blend_row["plain_ms"],
+        "bound_ms": blend_row["bound_ms"],
+        "bound_by": blend_row["bound_by"],
+        "library_ms": blend_row["library_ms"],
     }]
+    for k in kernels:
+        check(all(n > 0 for n in k["launches_by_path"].values()), f"{k['name']} was not launched on a path: {k}")
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     if args.report:

@@ -1,7 +1,7 @@
 """Serving configuration with environment overrides.
 
 The port's copy of the fields of image_restoration_platform_tpu/config.py
-(``ServingConfig``) that the restore path reads: same environment variables,
+(``ServingConfig``) that the serving paths read: same environment variables,
 same defaults.
 
 Not ported: ``SERVE_FOLD_W`` / ``SERVE_FOLD_W_SR``. The W-fold
@@ -42,6 +42,12 @@ class ServingConfig:
             if s
         )
     )
+    # restore_batch fan-out: images restored at once, and the stagger between
+    # their starts
+    batch_concurrency: int = field(
+        default_factory=lambda: max(1, _env_int("RESTORATION_BATCH_CONCURRENCY", 3))
+    )
+    batch_delay_ms: int = field(default_factory=lambda: _env_int("RESTORATION_BATCH_DELAY_MS", 0))
     request_deadline_s: float = field(default_factory=lambda: _env_float("SERVE_DEADLINE_S", 120.0))
     # batches dispatched to the device but not yet fetched (2 = double-buffering)
     pipeline_depth: int = field(default_factory=lambda: max(1, _env_int("SERVE_PIPELINE_DEPTH", 2)))
@@ -51,8 +57,8 @@ class ServingConfig:
     deblur: bool = field(default_factory=lambda: _env_int("SERVE_DEBLUR", 1) == 1)
     # gated JPEG deblocking stage (ops/deblock.py)
     deblock: bool = field(default_factory=lambda: _env_int("SERVE_DEBLOCK", 1) == 1)
-    # 16-bit PNG float deblur pre-pass; not ported yet, so such uploads raise
-    # NotImplementedError while this is on
+    # 16-bit PNG float deblur pre-pass; not ported yet, so where the native
+    # codec exists such uploads raise NotImplementedError while this is on
     hdr_deblur: bool = field(default_factory=lambda: _env_int("SERVE_HDR_DEBLUR", 1) == 1)
     # space-to-depth IO for the s2d-stem UNet families: the residual add runs
     # in s2d layout and egress reads the s2d tensor directly

@@ -1,6 +1,10 @@
 """Restoration models of the port (PyTorch modules)."""
 
+from .diffusion import DiffusionConfig
 from .registry import ParamCache, get_family
+from .srnet import SRNet, SRNetConfig
 from .unet import RestorationUNet, UNetConfig
 
-__all__ = ["ParamCache", "RestorationUNet", "UNetConfig", "get_family"]
+__all__ = [
+    "DiffusionConfig", "ParamCache", "RestorationUNet", "SRNet", "SRNetConfig", "UNetConfig", "get_family",
+]

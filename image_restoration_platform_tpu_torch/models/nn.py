@@ -139,6 +139,18 @@ def film(x: torch.Tensor, cond: torch.Tensor, w: torch.Tensor, b: torch.Tensor) 
     return x * (1.0 + gamma[:, None, None, :]) + beta[:, None, None, :]
 
 
+def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    """Transformer sinusoidal embedding of scalar timesteps [N] -> [N, dim]
+    f32: cosines of t * freqs, then sines."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 

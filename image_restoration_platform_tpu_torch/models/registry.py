@@ -1,8 +1,8 @@
 """Model registry: named families -> configs, and a cache of their weights.
 
-The restore families of image_restoration_platform_tpu/models/registry.py.
-The SR and diffusion families are known by name but not ported yet; asking
-for one raises ``NotImplementedError`` rather than serving something else.
+The families of image_restoration_platform_tpu/models/registry.py: the two
+restore UNets, the two SRNets and the diffusion family, whose model is the
+time-conditioned UNet that ``models.diffusion.restore`` samples with.
 """
 
 from __future__ import annotations
@@ -16,15 +16,23 @@ import torch
 
 from ..utils.logging import get_logger
 from . import weights as weights_mod
+from .diffusion import DiffusionConfig
+from .srnet import SRNet, SRNetConfig
 from .unet import RestorationUNet, UNetConfig
 
 
 @dataclass(frozen=True)
 class ModelFamily:
     name: str
-    config: UNetConfig
+    config: UNetConfig | SRNetConfig | DiffusionConfig
 
-    def build(self) -> RestorationUNet:
+    def build(self) -> torch.nn.Module:
+        """The family's module with zero parameters, ready for
+        ``load_state_dict``."""
+        if isinstance(self.config, SRNetConfig):
+            return SRNet(self.config)
+        if isinstance(self.config, DiffusionConfig):
+            return RestorationUNet(self.config.unet)
         return RestorationUNet(self.config)
 
 
@@ -41,13 +49,13 @@ _FAMILIES: dict[str, ModelFamily] = {
             residual_shrink=0.01,
         ),
     ),
+    "sr-x2": ModelFamily("sr-x2", SRNetConfig(scale=2)),
+    "sr-x4": ModelFamily("sr-x4", SRNetConfig(scale=4)),
+    "diffusion-restore": ModelFamily("diffusion-restore", DiffusionConfig()),
 }
-NOT_PORTED = ("sr-x2", "sr-x4", "diffusion-restore")
 
 
 def get_family(name: str) -> ModelFamily:
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"model family {name} is not ported to PyTorch yet")
     if name not in _FAMILIES:
         raise KeyError(f"unknown model family: {name}; have {sorted(_FAMILIES)}")
     return _FAMILIES[name]

@@ -8,7 +8,9 @@ vector, a space-to-depth stem (``input_scale``) and a soft-shrunk global
 residual. Module and parameter names follow the JAX parameter tree, so a
 state dict from ``weights.params_from_jax`` loads with ``strict=True``.
 
-The time-conditioned (diffusion) variant is not ported yet.
+With ``time_conditioned`` (the diffusion family's epsilon/x0 predictor) the
+conditioning MLP also takes the sinusoidal embedding of the timestep:
+``cond_mlp1`` has ``cond_dim + emb_dim`` inputs.
 """
 
 from __future__ import annotations
@@ -98,12 +100,10 @@ class Mid(nn.Module):
 class RestorationUNet(nn.Module):
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
-        if config.time_conditioned:
-            raise NotImplementedError("the time-conditioned (diffusion) UNet is not ported yet")
         c = self.config = config
         ch = [c.base_channels * m for m in c.channel_mults]
         s2 = c.input_scale * c.input_scale
-        self.cond_mlp1 = L.Dense(c.cond_dim, c.emb_dim)
+        self.cond_mlp1 = L.Dense(c.cond_dim + (c.emb_dim if c.time_conditioned else 0), c.emb_dim)
         self.cond_mlp2 = L.Dense(c.emb_dim, c.emb_dim)
         self.stem = L.Conv(c.in_channels * s2, ch[0])
 
@@ -151,12 +151,21 @@ class RestorationUNet(nn.Module):
             self.head.b.zero_()
         return self
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor, s2d_io: bool = False) -> torch.Tensor:
-        """x [N,H,W,3] in [0,1] (or [N,H/s,W/s,3*s^2] with ``s2d_io``),
-        cond [N,cond_dim] -> restored, in x's layout and type."""
+    def forward(
+        self, x: torch.Tensor, cond: torch.Tensor, t: torch.Tensor | None = None, s2d_io: bool = False
+    ) -> torch.Tensor:
+        """x [N,H,W,in_channels] in [0,1] (or [N,H/s,W/s,3*s^2] with
+        ``s2d_io``), cond [N,cond_dim], t [N] timesteps (time-conditioned
+        models only; None means zeros) -> restored, in x's layout and type."""
         c = self.config
         dtype = x.dtype
-        emb = self.cond_mlp2(L.silu(self.cond_mlp1(cond.to(dtype))))
+        emb_in = cond.to(dtype)
+        if c.time_conditioned:
+            if t is None:
+                t = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+            # the embedding is f32 and meets the compute type only here
+            emb_in = torch.cat([emb_in, L.sinusoidal_embedding(t, c.emb_dim).to(dtype)], dim=-1)
+        emb = self.cond_mlp2(L.silu(self.cond_mlp1(emb_in)))
 
         if s2d_io:
             if c.input_scale <= 1 or c.in_channels != c.out_channels:

@@ -1,15 +1,18 @@
-"""RestorationEngine — owns the models and runs the restore program.
+"""RestorationEngine — owns the models and runs the device programs.
 
-Counterpart of the restore surfaces of
-image_restoration_platform_tpu/serve/engine.py (``restore_batch`` and
-``restore_batch_async``): batches are padded to a power-of-two bucket by
-repeating the last row, the program runs on the engine's device, and one
-synchronising device->host copy fetches the outputs. Device seconds are
-overlap-corrected across pipelined batches.
+Counterpart of the single-device surfaces of
+image_restoration_platform_tpu/serve/engine.py: ``restore_batch`` and
+``restore_batch_async`` (the standard and the diffusion families),
+``fuse_batch``, ``sr_batch`` and ``sr_tiled``. Restore batches are padded to
+a power-of-two bucket by repeating the last row; every surface runs its
+program on the engine's device and fetches all outputs in one synchronising
+device->host copy. Device seconds are overlap-corrected across pipelined
+batches.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
-never falls back to the CPU by itself. Mesh serving, sharding and the
-executable disk cache are not ported.
+never falls back to the CPU by itself. The HDR deblur pre-pass, mesh serving
+(``sr_spatial``, the mesh tiled program), sharding and the executable disk
+cache are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +40,24 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "CUDA is not available: pass device='cpu' to run the port on the CPU"
         )
     return device
+
+
+def _pack(tensors) -> torch.Tensor:
+    """One flat byte buffer of the tensors, so a fetch is one device->host
+    copy."""
+    return torch.cat([t.contiguous().view(torch.uint8).reshape(-1) for t in tensors])
+
+
+def _unpack(host: np.ndarray, tensors) -> list[np.ndarray]:
+    """The arrays of ``_pack(tensors)`` fetched as ``host``, in the tensors'
+    shapes and types."""
+    arrays, offset = [], 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        dtype = np.float32 if t.dtype == torch.float32 else np.uint8
+        arrays.append(host[offset : offset + nbytes].view(dtype).reshape(tuple(t.shape)))
+        offset += nbytes
+    return arrays
 
 
 def _batch_bucket(n: int, max_batch: int) -> int:
@@ -74,6 +95,9 @@ class RestorationEngine:
         self.device_seconds_total = 0.0
         self._acct_lock = threading.Lock()
         self._device_busy_until = 0.0
+        # the diffusion sampler's noise source, in place of a split PRNG key
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._rng_lock = threading.Lock()
 
     def _account_device_time(self, t0: float) -> float:
         """Record a device-busy span [t0, now], clipped to start no earlier
@@ -93,7 +117,11 @@ class RestorationEngine:
         if not self.config.s2d_io:
             return False
         cfg = get_family(family_name).config
-        return cfg.input_scale > 1 and cfg.in_channels == cfg.out_channels
+        return (
+            getattr(cfg, "input_scale", 1) > 1
+            and getattr(cfg, "in_channels", 0) == getattr(cfg, "out_channels", -1)
+            and not getattr(cfg, "time_conditioned", False)
+        )
 
     def model(self, family_name: str) -> torch.nn.Module:
         """The family's model on this engine's device, conv and dense
@@ -107,21 +135,26 @@ class RestorationEngine:
                 self._models[family_name] = m.to(self.device).eval()
             return self._models[family_name]
 
+    def _cached_program(self, key: tuple, build):
+        with self._lock:
+            if key not in self._programs:
+                self._programs[key] = build()
+            return self._programs[key]
+
     def _program(self, family_name: str, egress: str):
         from .programs import build_restore_program
 
-        key = (family_name, egress)
-        with self._lock:
-            if key not in self._programs:
-                self._programs[key] = build_restore_program(
-                    family_name,
-                    dtype=self.dtype,
-                    use_s2d_io=self._uses_s2d_io(family_name),
-                    use_deblur=self.config.deblur,
-                    use_deblock=self.config.deblock,
-                    egress=egress,
-                )
-            return self._programs[key]
+        return self._cached_program(
+            (family_name, egress),
+            lambda: build_restore_program(
+                family_name,
+                dtype=self.dtype,
+                use_s2d_io=self._uses_s2d_io(family_name),
+                use_deblur=self.config.deblur,
+                use_deblock=self.config.deblock,
+                egress=egress,
+            ),
+        )
 
     # ------------------------------------------------------------ serving
 
@@ -149,7 +182,9 @@ class RestorationEngine:
         returns a fetch() closure that synchronises and returns (out, scores
         [N,7], meta). The stages' host branches synchronise inside the
         launch (ops/deblock.py, ops/deblur.py), so the launch returns once
-        the last of them is decided, with the backbone still queued."""
+        the last of them is decided, with the backbone still queued. The
+        diffusion family has RGB egress only and draws its sampler's noise
+        from the engine's seeded generator."""
         n = canvas_u8.shape[0]
         if valid_hw is None:
             valid_hw = np.tile(np.asarray([canvas_u8.shape[1], canvas_u8.shape[2]], np.int32), (n, 1))
@@ -165,33 +200,39 @@ class RestorationEngine:
             valid_hw = np.concatenate([valid_hw, np.repeat(valid_hw[-1:], pad, axis=0)], axis=0)
             is_jpeg_f = np.concatenate([is_jpeg_f, np.repeat(is_jpeg_f[-1:], pad, axis=0)], axis=0)
 
+        if family_name == "diffusion-restore":
+            egress = "rgb"  # the diffusion program has no plane egress
         model = self.model(family_name)
         program = self._program(family_name, egress)
-        # one UNet forward per batch: the count a run holds kernel launches to
-        get_counters().inc(f"restore_batches.{canvas_u8.shape[1]}")
+        # batches by family kind and size: the counts a run holds kernel
+        # launches to (one UNet forward per restore batch, sample_steps per
+        # diffusion batch)
+        kind = "diffusion_batches" if family_name == "diffusion-restore" else "restore_batches"
+        get_counters().inc(f"{kind}.{canvas_u8.shape[1]}")
         t0 = time.perf_counter()
         trace_label = f"restore/{family_name}/{canvas_u8.shape[1]}x{canvas_u8.shape[2]}b{bucket}"
         with device_trace(trace_label):
             args = (
-                torch.from_numpy(np.require(canvas_u8, requirements=("C", "W"))).to(self.device),
+                self._to_device(canvas_u8),
                 torch.from_numpy(valid_hw).to(self.device),
                 torch.from_numpy(is_jpeg_f).to(self.device),
             )
+            if family_name == "diffusion-restore":
+                with self._rng_lock:
+                    noise = torch.randn(
+                        tuple(args[0].shape), generator=self._generator, device=self.device, dtype=self.dtype
+                    )
+                args += (noise,)
             out, scores = program(model, *args)
             outs = out if isinstance(out, tuple) else (out,)
-            # one flat byte buffer, so the fetch is one device->host copy
-            packed = torch.cat([o.reshape(-1) for o in outs] + [scores.contiguous().view(torch.uint8).reshape(-1)])
+            packed = _pack([*outs, scores])
 
         def fetch():
             t_fetch = time.perf_counter()
             host = packed.cpu().numpy()
             wall_s = time.perf_counter() - t0
             device_s = self._account_device_time(t0)
-            arrays, offset = [], 0
-            for o in outs:
-                arrays.append(host[offset : offset + o.numel()].reshape(tuple(o.shape))[:n])
-                offset += o.numel()
-            scores_h = host[offset:].view(np.float32).reshape(tuple(scores.shape))[:n]
+            *arrays, scores_h = (a[:n] for a in _unpack(host, [*outs, scores]))
             meta = {
                 "engineRequestId": uuid.uuid4().hex,
                 "deviceSeconds": device_s,
@@ -206,3 +247,105 @@ class RestorationEngine:
             return arrays[0], scores_h, meta
 
         return fetch
+
+    # ------------------------------------------- fusion, super-resolution
+
+    SR_TILE_THRESHOLD = 512  # mirror of RestoratorService.SR_TILE_THRESHOLD
+    SR_TILED_CANVAS = 2048  # the documented 2K -> 4K bucket
+
+    def _run_sync(self, label: str, run, family_name: str, **extra):
+        """Run a device program, fetch its outputs in one synchronising
+        copy and assemble the standard meta with overlap-corrected
+        deviceSeconds. ``run()`` returns a tensor or a tuple of tensors."""
+        t0 = time.perf_counter()
+        with device_trace(label):
+            out = run()
+            outs = out if isinstance(out, tuple) else (out,)
+            packed = _pack(outs)
+            t_fetch = time.perf_counter()
+            arrays = _unpack(packed.cpu().numpy(), outs)
+        device_s = self._account_device_time(t0)
+        meta = {
+            "engineRequestId": uuid.uuid4().hex,
+            "deviceSeconds": device_s,
+            "fetchSeconds": time.perf_counter() - t_fetch,
+            "family": family_name,
+            **extra,
+        }
+        return (tuple(arrays) if isinstance(out, tuple) else arrays[0]), meta
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.require(array, requirements=("C", "W"))).to(self.device)
+
+    def fuse_batch(
+        self,
+        canvas_u8: np.ndarray,
+        valid_hw: np.ndarray,
+        is_jpeg: np.ndarray,
+        family_name: str = "restore-unet",
+    ) -> tuple[np.ndarray, np.ndarray, dict]:
+        """Multi-image fusion: restore K aligned exposures [K,B,B,3] (K <= 3,
+        not padded to a batch bucket) and composite them with weights from
+        their degradation scores, in one device program. Returns (fused
+        [B,B,3] u8, scores [K,7], meta)."""
+        from .programs import build_fusion_program
+
+        k = canvas_u8.shape[0]
+        model = self.model(family_name)
+        program = self._cached_program(
+            ("fusion", family_name), lambda: build_fusion_program(family_name, dtype=self.dtype)
+        )
+        get_counters().inc(f"fusion_batches.{canvas_u8.shape[1]}")
+        args = (
+            self._to_device(canvas_u8),
+            torch.from_numpy(np.asarray(valid_hw, np.int32)).to(self.device),
+            torch.from_numpy(np.asarray(is_jpeg, np.float32)).to(self.device),
+        )
+        (fused, scores), meta = self._run_sync(
+            f"fuse/{family_name}/k{k}/{canvas_u8.shape[1]}",
+            lambda: program(model, *args), family_name, fusionInputs=k,
+        )
+        return fused, scores, meta
+
+    def sr_batch(self, imgs_u8: np.ndarray, family_name: str = "sr-x2") -> tuple[np.ndarray, dict]:
+        """Super-resolution batch [N,H,W,3] u8 -> [N,H*scale,W*scale,3] u8
+        (no conditioning, no tiling)."""
+        model = self.model(family_name)
+        program = self._program(family_name, "rgb")
+        get_counters().inc(f"sr_batches.{imgs_u8.shape[1]}")
+        imgs = self._to_device(imgs_u8)
+        return self._run_sync(
+            f"sr/{family_name}/{imgs_u8.shape[1]}x{imgs_u8.shape[2]}",
+            lambda: program(model, imgs), family_name,
+        )
+
+    def sr_tiled(
+        self,
+        canvas_u8: np.ndarray,
+        family_name: str = "sr-x2",
+        tile: int = 256,
+        overlap: int = 32,
+        tile_batch: int = 8,
+        output: str = "rgb",
+    ) -> tuple[np.ndarray, dict]:
+        """Tiled super-resolution of one [H,W,3] u8 canvas with seam-free
+        overlap-blend (2K -> 4K): tile extraction, batched SRNet calls over
+        tile chunks and one windowed fold, all on the device. Returns the
+        [H*scale,W*scale,3] u8 canvas, or with ``output="yuv420"`` its
+        (Y, Cb, Cr) u8 planes."""
+        from .programs import build_sr_tiled_program
+
+        size = canvas_u8.shape[0]
+        model = self.model(family_name)
+        program = self._cached_program(
+            ("sr_tiled", family_name, tile, overlap, tile_batch, output),
+            lambda: build_sr_tiled_program(
+                family_name, dtype=self.dtype, tile=tile, overlap=overlap, tile_batch=tile_batch, output=output
+            ),
+        )
+        get_counters().inc(f"sr_tiled_calls.{size}")
+        canvas = self._to_device(canvas_u8)
+        return self._run_sync(
+            f"sr_tiled/{family_name}/{size}t{tile}",
+            lambda: program(model, canvas), family_name, tile=tile, overlap=overlap,
+        )

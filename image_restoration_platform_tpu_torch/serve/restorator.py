@@ -1,35 +1,38 @@
 """Restorator — decode -> letterbox -> restore program -> prompt -> JPEG.
 
-Counterpart of the 8-bit standard restore path of
-image_restoration_platform_tpu/serve/restorator.py (``RestoratorService
-.restore``): the result contract (per-stage timings, degradation analysis,
-enhanced prompt, metadata with ``classificationIssues``), the structured
-failure with its error taxonomy and failed stage.
+Counterpart of image_restoration_platform_tpu/serve/restorator.py
+(``RestoratorService``): ``restore`` for the standard, diffusion and
+super-resolution families (direct SRNet up to the 512 bucket, tiled
+overlap-blend above it), ``restore_fusion`` and the ``restore_batch``
+fan-out, with the reference's result contract (per-stage timings,
+degradation analysis, enhanced prompt, metadata with
+``classificationIssues``) and its structured failure with error taxonomy and
+failed stage.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than served
-another way: the SR and diffusion families, and 16-bit PNG uploads while the
-HDR deblur pre-pass is on (``SERVE_HDR_DEBLUR``).
+another way: 16-bit PNG uploads where the native codec exists and the HDR
+deblur pre-pass is on (``SERVE_HDR_DEBLUR``). Without the native codec such
+an upload is served on the 8-bit path, as in the reference.
 """
 
 from __future__ import annotations
 
 import base64
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from .. import imageio
 from ..classify.classifier import DEGRADATION_ORDER
 from ..config import ServingConfig
+from ..models import get_family
 from ..obs.metrics import get_counters
 from ..obs.tracing import get_tracer
 from ..ops.resize import fit_inside
 from ..prompt import PromptEnhancerService
 from ..utils.logging import get_logger
 from .engine import RestorationEngine, resolve_device
-
-STANDARD_FAMILIES = ("restore-unet", "restore-unet-small")
-
 
 def _classify_error(error: Exception) -> str:
     message = str(error).lower()
@@ -102,17 +105,10 @@ class RestoratorService:
             canvas = img
         return canvas, (sh, sw), bucket
 
-    def _refuse_unported(self, image, family: str) -> None:
-        if family not in STANDARD_FAMILIES:
-            raise NotImplementedError(f"model family {family} is not ported to PyTorch yet")
-        if self._wants_hdr(image):
-            raise NotImplementedError(
-                "16-bit PNG uploads take the HDR deblur pre-pass, which is not ported to "
-                "PyTorch yet (SERVE_HDR_DEBLUR=0 serves them on the 8-bit path)"
-            )
-
     def _wants_hdr(self, image) -> bool:
         if not self.config.hdr_deblur or not isinstance(image, (bytes, bytearray)):
+            return False
+        if not imageio.native_available():
             return False
         try:
             return (
@@ -146,7 +142,11 @@ class RestoratorService:
         options = options or {}
         user_context = user_context or {}
         family = options.get("model", "restore-unet")
-        self._refuse_unported(image, family)
+        if self._wants_hdr(image):
+            raise NotImplementedError(
+                "16-bit PNG uploads take the HDR deblur pre-pass, which is not ported to "
+                "PyTorch yet (SERVE_HDR_DEBLUR=0 serves them on the 8-bit path)"
+            )
         start = time.perf_counter()
         timings: dict = {}
 
@@ -159,6 +159,8 @@ class RestoratorService:
         ) as span:
             try:
                 pixels, fmt = self._decode(image, options)
+                if family.startswith("sr-"):
+                    return self._restore_sr(pixels, fmt, family, timings, start, span)
 
                 # classification, conditioning and restoration run as one
                 # device program; its time is attributed to classify_ms
@@ -172,6 +174,7 @@ class RestoratorService:
                     "yuv420"
                     if (
                         self.config.restore_egress == "yuv420"
+                        and family != "diffusion-restore"
                         and (sh, sw) == pixels.shape[:2]
                         and imageio.native_available()
                     )
@@ -278,3 +281,215 @@ class RestoratorService:
                         "failureStage": _failure_stage(timings),
                     },
                 }
+
+    # -------------------------------------------------- super-resolution
+
+    SR_TILE_THRESHOLD = 512  # above this bucket, tile + overlap-blend
+
+    def _restore_sr(self, pixels, fmt, family, timings, start, span) -> dict:
+        """Super-resolution: direct SRNet for small inputs, tiled
+        overlap-blend for large ones."""
+        scale = get_family(family).config.scale
+        h, w = pixels.shape[:2]
+        t = time.perf_counter()
+        canvas, (sh, sw), bucket = self._canonicalize_sr(pixels)
+        yuv_planes = None
+        # (the reference row-shards the canvas here when its mesh has a
+        # spatial axis; that branch comes with parallel/)
+        if bucket <= self.SR_TILE_THRESHOLD:
+            out_batch, engine_meta = self.engine.sr_batch(canvas[None], family)
+            out_canvas = out_batch[0]
+        elif (sh, sw) == (h, w) and imageio.native_available():
+            # huge-canvas egress: the device emits YCbCr 4:2:0 planes (1.5
+            # B/px instead of 3) and the native encoder consumes them raw;
+            # only when no host resize follows
+            (py, pcb, pcr), engine_meta = self.engine.sr_tiled(canvas, family, output="yuv420")
+            hs, ws = sh * scale, sw * scale
+            yuv_planes = (py[:hs, :ws], pcb[: hs // 2, : ws // 2], pcr[: hs // 2, : ws // 2])
+            out_canvas = None
+        else:
+            out_canvas, engine_meta = self.engine.sr_tiled(canvas, family)
+        if yuv_planes is None:
+            restored = out_canvas[: sh * scale, : sw * scale]
+            if (sh, sw) != (h, w):
+                restored = imageio.resize_rgb8(restored, (h * scale, w * scale))
+        timings["restore_ms"] = round((time.perf_counter() - t) * 1000, 3)
+        timings["classify_ms"] = 0.0
+        timings["prompt_ms"] = 0.0
+        timings["total_ms"] = round((time.perf_counter() - start) * 1000, 3)
+        device_s = engine_meta.get("deviceSeconds", 0.0)
+        span.set_attributes({"restoration.sr_scale": scale, "restoration.success": True})
+        if yuv_planes is not None:
+            jpeg_bytes = imageio.encode_jpeg_ycbcr420(*yuv_planes, quality=90)
+        else:
+            jpeg_bytes = imageio.encode_jpeg(restored, quality=90)
+        return {
+            "success": True,
+            "restoredImage": base64.b64encode(jpeg_bytes).decode("ascii"),
+            "degradationAnalysis": {},
+            "enhancedPrompt": "",
+            "timings": timings,
+            "metadata": {
+                "providerRequestId": engine_meta.get("engineRequestId"),
+                "billedTokens": None,
+                "deviceSeconds": device_s,
+                "fetchSeconds": engine_meta.get("fetchSeconds"),
+                "model": family,
+                "scaleFactor": scale,
+                "outputSize": [h * scale, w * scale],
+                "sizeBucket": bucket,
+                "processingTime": timings["total_ms"],
+                "classificationIssues": [],
+            },
+        }
+
+    def _canonicalize_sr(self, img: np.ndarray) -> tuple[np.ndarray, tuple[int, int], int]:
+        """SR canonicalization allows a 2048 bucket on top of the serving
+        buckets (2K input -> 4K output)."""
+        h, w = img.shape[:2]
+        buckets = tuple(sorted(set(self.config.size_buckets) | {2048}))
+        longest = max(h, w)
+        bucket = next((b for b in buckets if longest <= b), buckets[-1])
+        sw, sh = fit_inside(w, h, bucket)
+        if (sh, sw) != (h, w):
+            img = imageio.resize_rgb8(img, (sh, sw))
+        if (sh, sw) != (bucket, bucket):
+            img = np.pad(img, ((0, bucket - sh), (0, bucket - sw), (0, 0)), mode="edge")
+        return img, (sh, sw), bucket
+
+    # ---------------------------------------------------- multi-image fusion
+
+    def restore_fusion(
+        self,
+        images: list,
+        user_prompt: str | None = None,
+        user_context: dict | None = None,
+        options: dict | None = None,
+    ) -> dict:
+        """Fuse up to 3 aligned captures into one restored image in a single
+        batched device call. All inputs are letterboxed into the largest
+        member's bucket; the engine restores each and composites with
+        quality-derived weights. The response mirrors restore() plus
+        per-image analyses."""
+        options = options or {}
+        user_context = user_context or {}
+        start = time.perf_counter()
+        timings: dict = {}
+        family = options.get("model", "restore-unet")
+
+        with self._tracer.span(
+            "restorator.restoreFusion", {"restoration.fusion_inputs": len(images)}
+        ) as span:
+            try:
+                if not 1 <= len(images) <= 3:
+                    raise ValueError("fusion requires 1-3 images")
+                decoded = [self._decode(img, options) for img in images]
+                ref_pixels, _ = decoded[0]
+
+                t = time.perf_counter()
+                bucket = max(self._bucket_for(p.shape[0], p.shape[1]) for p, _ in decoded)
+                canvases, valids, jpegs = [], [], []
+                for pixels, fmt in decoded:
+                    h, w = pixels.shape[:2]
+                    sw, sh = fit_inside(w, h, bucket)
+                    scaled = imageio.resize_rgb8(pixels, (sh, sw)) if (sh, sw) != (h, w) else pixels
+                    canvases.append(
+                        np.pad(scaled, ((0, bucket - sh), (0, bucket - sw), (0, 0)), mode="edge")
+                        if (sh, sw) != (bucket, bucket)
+                        else scaled
+                    )
+                    valids.append((sh, sw))
+                    jpegs.append(fmt == "jpeg")
+
+                fused, scores, engine_meta = self.engine.fuse_batch(
+                    np.stack(canvases), np.asarray(valids, np.int32),
+                    np.asarray(jpegs, np.float32), family,
+                )
+                per_image = [{k: float(v) for k, v in zip(DEGRADATION_ORDER, s)} for s in scores]
+                mean_scores = {
+                    k: float(np.mean([p[k] for p in per_image])) for k in DEGRADATION_ORDER
+                }
+                timings["classify_ms"] = round((time.perf_counter() - t) * 1000, 3)
+
+                t = time.perf_counter()
+                enhanced_prompt = self.prompt_enhancer.enhance(mean_scores, user_prompt, options)
+                timings["prompt_ms"] = round((time.perf_counter() - t) * 1000, 3)
+
+                t = time.perf_counter()
+                sh, sw = valids[0]
+                restored = fused[:sh, :sw]
+                if (sh, sw) != ref_pixels.shape[:2]:
+                    restored = imageio.resize_rgb8(restored, ref_pixels.shape[:2])
+                timings["restore_ms"] = round((time.perf_counter() - t) * 1000, 3)
+                timings["total_ms"] = round((time.perf_counter() - start) * 1000, 3)
+
+                device_s = engine_meta.get("deviceSeconds", 0.0)
+                span.set_attributes({"restoration.success": True})
+                return {
+                    "success": True,
+                    "restoredImage": base64.b64encode(
+                        imageio.encode_jpeg(restored, quality=85)
+                    ).decode("ascii"),
+                    "degradationAnalysis": mean_scores,
+                    "enhancedPrompt": enhanced_prompt,
+                    "timings": timings,
+                    "metadata": {
+                        "providerRequestId": engine_meta.get("engineRequestId"),
+                        "billedTokens": None,
+                        "deviceSeconds": device_s,
+                        "fetchSeconds": engine_meta.get("fetchSeconds"),
+                        "model": family,
+                        "fusionInputs": len(images),
+                        "perImageAnalysis": per_image,
+                        "sizeBucket": bucket,
+                        "processingTime": timings["total_ms"],
+                        "classificationIssues": [
+                            {"type": k, "confidence": v} for k, v in mean_scores.items() if v > 0.3
+                        ],
+                    },
+                }
+            except Exception as error:
+                timings["total_ms"] = round((time.perf_counter() - start) * 1000, 3)
+                span.record_exception(error)
+                span.set_status("ERROR", str(error))
+                return {
+                    "success": False,
+                    "error": {
+                        "message": str(error),
+                        "code": "FUSION_FAILED",
+                        "type": _classify_error(error),
+                    },
+                    "timings": timings,
+                    "metadata": {
+                        "processingTime": timings["total_ms"],
+                        "failureStage": _failure_stage(timings),
+                    },
+                }
+
+    def restore_batch(
+        self,
+        images: list,
+        user_prompt: str | None = None,
+        user_context: dict | None = None,
+        options: dict | None = None,
+    ) -> list[dict]:
+        """Bounded-concurrency batch fan-out: every image goes through
+        restore() on a thread pool of ``batch_concurrency`` workers. One bad
+        image fails only its own slot, never the batch."""
+        options = options or {}
+        with self._tracer.span("restorator.restoreBatch", {"restoration.batch_size": len(images)}):
+            delay_ms = self.config.batch_delay_ms
+
+            def run(idx_image):
+                index, image = idx_image
+                if delay_ms > 0 and index > 0:
+                    time.sleep(delay_ms / 1000.0)
+                return self.restore(
+                    image,
+                    user_prompt,
+                    user_context,
+                    {**options, "batchIndex": index, "batchSize": len(images)},
+                )
+
+            with ThreadPoolExecutor(max_workers=self.config.batch_concurrency) as pool:
+                return list(pool.map(run, enumerate(images)))

@@ -33,7 +33,13 @@ leaked = sorted(
     if m == "jax" or m.startswith("jax.") or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}.")
 )
 print(len(names), leaked)
+print(" ".join(n[len("{PORT}."):] for n in names))
 """
+
+# the modules of the super-resolution, diffusion and fusion slice
+NEW_MODULES = {
+    "models.srnet", "models.diffusion", "ops.tile", "ops.cuda.blend", "serve.programs.sr", "serve.programs.fusion",
+}
 
 
 def test_port_imports_nothing_of_jax():
@@ -42,8 +48,10 @@ def test_port_imports_nothing_of_jax():
         [sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert out.returncode == 0, out.stderr
-    count, leaked = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20  # every module of the port was imported
+    first, modules = out.stdout.strip().splitlines()
+    count, leaked = first.split(" ", 1)
+    assert int(count) >= 38  # every module of the port was imported
+    assert NEW_MODULES <= set(modules.split())
     assert leaked == "[]"
 
 
@@ -65,6 +73,28 @@ def test_no_port_source_names_jax():
     for path in files:
         roots = _imported_roots(path)
         assert "jax" not in roots and JAX_PKG not in roots, path
+
+
+def test_kernel_sources_sit_beside_their_wrappers():
+    """Each wrapper names a source that exists under csrc/, and importing
+    the wrappers built nothing (kernels build at first launch)."""
+    from image_restoration_platform_tpu_torch.ops.cuda import attention, blend, build
+
+    for module in (attention, blend):
+        assert os.path.isfile(os.path.join(build.CSRC_DIR, module.SOURCE)), module.SOURCE
+    assert attention.flash_kernel._fn is None or torch.cuda.is_available()
+    assert blend.blend_kernel._fn is None or torch.cuda.is_available()
+    text = open(os.path.join(build.CSRC_DIR, blend.SOURCE)).read()
+    assert "irp_blend_tiles" in text and "ops/pallas/blend.py" in text
+
+
+def test_blend_reads_no_environment_switch():
+    """A CUDA tensor takes the kernel, a CPU tensor the plain fold: the
+    port's tile and blend modules read no environment variable."""
+    for rel in ("ops/tile.py", "ops/cuda/blend.py"):
+        text = open(os.path.join(REPO, PORT, rel)).read()
+        assert "environ" not in text and "IRP_PALLAS_BLEND" not in text, rel
+        assert "fold(" not in text.replace("blend_tiles(", "") and "index_add" not in text, rel
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():

@@ -158,17 +158,45 @@ def _png16(rgb16: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
-def test_restorator_refuses_what_is_not_ported(service):
-    img = np.full((32, 32, 3), 128, np.uint8)
-    with pytest.raises(NotImplementedError):
-        service.restore(img, options={"model": "sr-x2"})
-    with pytest.raises(NotImplementedError):
-        service.restore(img, options={"model": "diffusion-restore"})
-    with pytest.raises(NotImplementedError):
-        service.restore(_png16(np.full((32, 32, 3), 30000, np.uint16)))
-    with pytest.raises(NotImplementedError):
-        build_restore_program("sr-x2", dtype=torch.float32, use_s2d_io=False, use_deblur=True, use_deblock=True)
+@pytest.mark.parametrize("case", ["png16-native-codec", "png16-pillow-codec", "sr-x2", "diffusion-restore"])
+def test_restorator_refuses_what_is_not_ported(service, monkeypatch, case):
+    """Only the HDR pre-pass is left: a 16-bit PNG is refused where the
+    native codec exists (the reference would take the pre-pass there) and
+    served on the 8-bit path where the codec is Pillow, as the reference
+    serves it; the SR and diffusion families are served."""
+    if case.startswith("png16"):
+        png = _png16(np.full((32, 32, 3), 30000, np.uint16))
+        monkeypatch.setattr(imageio, "native_available", lambda: case == "png16-native-codec")
+        assert jimageio.decode_bit_depth(png[:32]) == 16
+        if case == "png16-native-codec":
+            with pytest.raises(NotImplementedError, match="HDR"):
+                service.restore(png, options={"model": "restore-unet-small"})
+            return
+        result = service.restore(png, options={"model": "restore-unet-small"})
+        assert result["success"] is True, result.get("error")
+        restored = imageio.decode_image(base64.b64decode(result["restoredImage"]))
+        assert (restored.height, restored.width) == (32, 32)
+        # the 8-bit path saw the image: the same answer as for its 8-bit pixels
+        pixels = imageio.decode_image(png).pixels
+        assert pixels.dtype == np.uint8 and abs(float(pixels.mean()) - 30000 / 257) < 1.0
+        same = service.restore(pixels, options={"model": "restore-unet-small", "format": "png"})
+        assert same["restoredImage"] == result["restoredImage"]
+        return
+    result = service.restore(np.full((32, 32, 3), 128, np.uint8), options={"model": case})
+    assert result["success"] is True, result.get("error")
+    assert result["metadata"]["model"] == case
+    build_restore_program(case, dtype=torch.float32, use_s2d_io=False, use_deblur=True, use_deblock=True)
 
+
+def test_hdr_switch_off_serves_16_bit_png_on_the_8_bit_path(monkeypatch):
+    monkeypatch.setattr(imageio, "native_available", lambda: True)
+    cfg = ServingConfig(size_buckets=(64,), max_batch=4, hdr_deblur=False)
+    svc = RestoratorService(engine=RestorationEngine(device="cpu", serving_config=cfg), serving_config=cfg,
+                            device="cpu")
+    assert svc._wants_hdr(_png16(np.full((8, 8, 3), 1, np.uint16))) is False
+    cfg_on = ServingConfig(size_buckets=(64,), max_batch=4, hdr_deblur=True)
+    assert RestoratorService(engine=svc.engine, serving_config=cfg_on, device="cpu")._wants_hdr(
+        _png16(np.full((8, 8, 3), 1, np.uint16))) is True
 
 
 def test_param_cache_is_shared_by_engine():

@@ -1,9 +1,9 @@
 """PyTorch port: weight files and parameter layouts.
 
 Every key of the shipped npz files loads into the port's modules with no
-missing or extra key, and parameters made by the JAX package's ``unet.init``
-map onto the same modules (HWIO conv kernels become OIHW, dense kernels stay
-[in, out])."""
+missing or extra key, and parameters made by the JAX package's ``init``
+functions map onto the same modules (HWIO conv kernels become OIHW, dense
+kernels stay [in, out])."""
 
 import jax
 import numpy as np
@@ -11,13 +11,12 @@ import pytest
 import torch
 
 from image_restoration_platform_tpu.models import registry as jreg
-from image_restoration_platform_tpu.models import unet as junet
 from image_restoration_platform_tpu_torch.models import ParamCache, get_family
 from image_restoration_platform_tpu_torch.models import weights as W
 
 torch.set_num_threads(2)
 
-FAMILIES = ["restore-unet", "restore-unet-small"]
+FAMILIES = ["restore-unet", "restore-unet-small", "sr-x2", "sr-x4", "diffusion-restore"]
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -33,13 +32,18 @@ def test_shipped_npz_loads_with_no_missing_or_extra_key(family):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_jax_init_tree_maps_onto_modules(family):
-    params = junet.init(jax.random.PRNGKey(0), jreg.get_family(family).config)
+    jfamily = jreg.get_family(family)
+    params = jfamily.init(jax.random.PRNGKey(0), jfamily.config)
     flat = W.flatten_params(params)
     state = W.params_from_jax(flat)
     get_family(family).build().load_state_dict(state, strict=True)
     # conv: HWIO -> OIHW; dense: [in, out] unchanged
     np.testing.assert_array_equal(state["stem.w"].numpy(), flat["stem/w"].transpose(3, 2, 0, 1))
-    np.testing.assert_array_equal(state["cond_mlp1.w"].numpy(), flat["cond_mlp1/w"])
+    if family.startswith("sr-"):
+        assert state["up.w"].shape == (3 * int(family[-1]) ** 2, 64, 3, 3)
+        np.testing.assert_array_equal(state["blocks.7.conv2.b"].numpy(), flat["blocks/7/conv2/b"])
+    else:
+        np.testing.assert_array_equal(state["cond_mlp1.w"].numpy(), flat["cond_mlp1/w"])
 
 
 def test_shipped_flagship_size():
@@ -67,5 +71,10 @@ def test_param_cache_without_weights_is_seeded_random(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("family", ["sr-x2", "sr-x4", "diffusion-restore"])
 def test_unported_families_refuse(family):
-    with pytest.raises(NotImplementedError):
-        get_family(family)
+    """No shipped family is refused any more: each builds and is cached with
+    its shipped weights; only an unknown name raises."""
+    state = ParamCache(0).get(family)
+    assert set(state) == set(get_family(family).build().state_dict())
+    assert float(state["stem.w"].abs().sum()) > 0
+    with pytest.raises(KeyError):
+        get_family(family + "-unknown")
