@@ -158,20 +158,23 @@ def _png16(rgb16: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
-@pytest.mark.parametrize("case", ["png16-native-codec", "png16-pillow-codec", "sr-x2", "diffusion-restore"])
-def test_restorator_refuses_what_is_not_ported(service, monkeypatch, case):
+def test_restorator_refuses_what_is_not_ported(service, monkeypatch):
     """Only the HDR pre-pass is left: a 16-bit PNG is refused where the
-    native codec exists (the reference would take the pre-pass there) and
-    served on the 8-bit path where the codec is Pillow, as the reference
-    serves it; the SR and diffusion families are served."""
-    if case.startswith("png16"):
+    native codec exists (the reference would take the pre-pass there)."""
+    png = _png16(np.full((32, 32, 3), 30000, np.uint16))
+    assert jimageio.decode_bit_depth(png[:32]) == 16
+    monkeypatch.setattr(imageio, "native_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="HDR"):
+        service.restore(png, options={"model": "restore-unet-small"})
+
+
+@pytest.mark.parametrize("case", ["png16-pillow-codec", "sr-x2", "diffusion-restore"])
+def test_restorator_serves_what_it_used_to_refuse(service, monkeypatch, case):
+    """Where the codec is Pillow a 16-bit PNG is served on the 8-bit path,
+    as the reference serves it; the SR and diffusion families are served."""
+    if case == "png16-pillow-codec":
         png = _png16(np.full((32, 32, 3), 30000, np.uint16))
-        monkeypatch.setattr(imageio, "native_available", lambda: case == "png16-native-codec")
-        assert jimageio.decode_bit_depth(png[:32]) == 16
-        if case == "png16-native-codec":
-            with pytest.raises(NotImplementedError, match="HDR"):
-                service.restore(png, options={"model": "restore-unet-small"})
-            return
+        monkeypatch.setattr(imageio, "native_available", lambda: False)
         result = service.restore(png, options={"model": "restore-unet-small"})
         assert result["success"] is True, result.get("error")
         restored = imageio.decode_image(base64.b64decode(result["restoredImage"]))
