@@ -356,7 +356,7 @@ def phase_slice(torch, np, report, card):
             results = {name: f.result() for name, f in futures.items()}
         launches = flash_kernel.launches
         after = counters.snapshot()
-        delta = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in after if k not in ("uptime_s", "images_per_sec")}
+        delta = _counter_delta(before, after)
         forwards = int(delta.get("restore_batches.256", 0) + delta.get("restore_batches.512", 0))
         batches = int(sum(v for k, v in delta.items() if k.startswith("restore_batches.")))
 
