@@ -13,10 +13,14 @@ failure (exit code 1):
    image codec the port's imageio got (native libjpeg/libpng/libwebp or
    Pillow);
 2. kernels: builds every CUDA source under csrc/ with nvcc (one process per
-   source, started together), holds each kernel against its plain PyTorch
-   version on the card at its path's shapes (attention: unit-variance and
-   peaked-logit inputs; blend: the 2K -> 4K grid, a clamped grid, overlap =
-   T/2 and a single tile), and times the kernel, the plain version and the
+   source, started together), holds every variant of each kernel that its
+   wrapper can choose against its plain PyTorch version on the card at its
+   path's shapes (attention: wgmma with one consumer warpgroup, with three,
+   and with three on some heads and two on the rest, mma.sync at D = 32 and
+   at a T that is no multiple of 128, SIMT f32, each on unit-variance and
+   peaked-logit inputs; blend: vector and
+   scalar on the 2K -> 4K grid, a clamped grid, overlap = T/2, odd origins
+   and a single tile), and times the kernel, the plain version and the
    library call that computes the same function beside the computed bound
    (CUDA events around 10 back-to-back calls queued behind a sleep kernel,
    so host dispatch is not timed; median of 20 such groups after warm-up);
@@ -42,7 +46,9 @@ failure (exit code 1):
    warm wall time of one 2048 -> 4096 sr-x2 request and of ``engine.sr_tiled``
    alone, with the profiler's split of one such step.
 
-``--report PATH`` also writes the full report as JSON to PATH. The last
+``--report PATH`` also writes the full report as JSON to PATH;
+``--kernels-only`` stops after phase 2 (a quick check of a changed kernel:
+it prints no result lines and exits 0 or 1). The last
 lines of standard output are the card line, the kernels JSON line, and
 {"ok": true, "device": {...}}.
 """
@@ -51,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import json
 import os
 import statistics
@@ -70,9 +77,19 @@ HBM_BYTES_PER_S = 3.35e12
 KERNEL_SHAPES = [  # (shape [N,H,T,D], dtype, where the path uses it)
     ((1, 4, 1024, 64), "bfloat16", "restore-unet 256 b1"),
     ((8, 4, 4096, 64), "bfloat16", "restore-unet 512 b8"),
+    ((3, 4, 4096, 64), "bfloat16", "fusion of three 512 captures (a batch that is no power of two)"),
     ((2, 2, 1024, 32), "bfloat16", "restore-unet-small 64 b2"),
+    ((1, 4, 192, 64), "bfloat16", "T no multiple of 128"),
     ((1, 4, 1024, 64), "float32", "restore-unet 256 b1, f32 engine"),
 ]
+# every variant ops.cuda.attention.launch_plan can choose has a shape above
+ATTENTION_VARIANTS = ("wgmma_q64", "wgmma_q192", "mma_sync", "simt_f32")
+# Which tiles the wgmma kernel gets depends on the card's SM count, so every
+# tile choice is also forced once, for correctness only, at a small shape whose
+# T is no multiple of 192 (the last block of a head reaches past it):
+# (consumer warpgroups, heads of the 20 that take the full 192-query blocks)
+FORCED_PLAN_SHAPE = (5, 4, 640, 64)
+FORCED_PLANS = ((1, 20), (3, 20), (3, 7), (3, 0))
 # bf16 is held to ops.cuda.attention.bf16_parity_bar: 0.02 (the reference's
 # own) and at most 4 bf16 ulps of max |plain|, since at T = 4096 with
 # unit-variance inputs a typical output is ~0.03. f32 is held to 1e-4.
@@ -95,6 +112,7 @@ BLEND_SHAPES = [
     ((1024, 1024), 256, 32, 2, "sr-x2 1024 bucket, clamped last tile"),
     ((1024, 1024), 256, 128, 1, "overlap = T/2"),
     ((100, 68), 32, 8, 1, "clamped in both axes"),
+    ((99, 67), 32, 8, 1, "odd origins and row length: scalar only"),
     ((64, 56), 32, 24, 1, "four tiles cover a row"),
     ((256, 256), 256, 32, 2, "single tile"),
 ]
@@ -247,16 +265,25 @@ def phase_blend_kernel(torch, report):
         tiles = torch.rand((len(ys) * len(xs), t, t, 3), generator=gen, device="cuda") * 255.0
         out_hw = (hw[0] * scale, hw[1] * scale)
         out_ys, out_xs = tuple(y * scale for y in ys), tuple(x * scale for x in xs)
-        out = B.blend_kernel(tiles, out_hw, out_ys, out_xs)
-        torch.cuda.synchronize()
         ref = T.blend_tiles(tiles, out_hw, out_ys, out_xs)
-        check(tuple(out.shape) == (*out_hw, 3) and bool(torch.isfinite(out).all()), f"blend {where}: output")
         bound, bound_by = blend_bound_ms(tiles.shape[0], t, 3, *out_hw)
+        chosen = B.kernel_variant(t, 3, out_hw[1], out_xs)
+        # the variant the wrapper chooses first, then the scalar one where it chose the vector one
+        by_variant = {}
+        for variant in dict.fromkeys((chosen, "scalar")):
+            out = B.blend_kernel(tiles, out_hw, out_ys, out_xs, variant=variant)
+            torch.cuda.synchronize()
+            check(tuple(out.shape) == (*out_hw, 3) and bool(torch.isfinite(out).all()),
+                  f"blend {where} {variant}: output")
+            by_variant[variant] = {
+                "max_abs_err": float((out - ref).abs().max()),
+                "ms": time_ms(torch, lambda: B.blend_kernel(tiles, out_hw, out_ys, out_xs, variant=variant)),
+            }
         row = {
-            "kernel": "blend_tiles", "canvas": list(hw), "tile": tile, "overlap": overlap, "scale": scale,
-            "tiles": tiles.shape[0], "path": where, "max_abs_err": float((out - ref).abs().max()),
-            "tolerance": BLEND_ATOL,
-            "ms": time_ms(torch, lambda: B.blend_kernel(tiles, out_hw, out_ys, out_xs)),
+            "kernel": "blend_tiles", "variant": chosen, "canvas": list(hw), "tile": tile, "overlap": overlap,
+            "scale": scale, "tiles": tiles.shape[0], "path": where,
+            "max_abs_err": max(v["max_abs_err"] for v in by_variant.values()),
+            "tolerance": BLEND_ATOL, "ms": by_variant[chosen]["ms"], "by_variant": by_variant,
             "plain_ms": time_ms(torch, lambda: T.blend_tiles(tiles, out_hw, out_ys, out_xs), groups=10, calls=1),
             "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
         }
@@ -285,6 +312,8 @@ def phase_blend_kernel(torch, report):
         rows.append(row)
         del tiles, out, ref
     torch.cuda.empty_cache()
+    seen = {variant for r in rows for variant in r["by_variant"]}
+    check(seen == set(B.VARIANTS), f"blend variants checked {sorted(seen)}, the wrapper has {sorted(B.VARIANTS)}")
     report["blend_checks"] = rows
     return rows
 
@@ -294,9 +323,11 @@ def phase_kernels(torch, report):
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for shape, dtype, where in KERNEL_SHAPES:
         dt = getattr(torch, dtype)
+        plan = A.launch_plan(shape, dt, sm_count)
         base = [torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(3)]
         checks = {}
         for inputs, (q_scale, v_scale) in INPUT_SCALES.items():
@@ -309,7 +340,8 @@ def phase_kernels(torch, report):
         q, k, v = base
         bound, bound_by = attention_bound_ms(shape, dtype)
         row = {
-            "kernel": "flash_attention", "shape": list(shape), "dtype": dtype, "path": where,
+            "kernel": "flash_attention", "variant": plan.variant, "shape": list(shape), "dtype": dtype,
+            "path": where, "plan": dataclasses.asdict(plan),
             "max_abs_err": max(c["max_abs_err"] for c in checks.values()), "checks": checks,
             "ms": time_ms(torch, lambda: A.flash_kernel(q, k, v)),
             "plain_ms": time_ms(torch, lambda: A.attention_reference(q, k, v)),
@@ -320,7 +352,26 @@ def phase_kernels(torch, report):
         for inputs, c in checks.items():
             check(c["max_abs_err"] <= c["tolerance"], f"flash attention {shape} {dtype} {inputs}: {c}")
         rows.append(row)
+    seen = {r["variant"] for r in rows}
+    check(seen == set(ATTENTION_VARIANTS) == set(A.VARIANTS),
+          f"attention variants checked {sorted(seen)}, the wrapper has {sorted(A.VARIANTS)}")
+
+    n, h, t, _ = FORCED_PLAN_SHAPE
+    q, k, v = (torch.randn(FORCED_PLAN_SHAPE, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    q, v = q * INPUT_SCALES["peaked"][0], v * INPUT_SCALES["peaked"][1]
+    ref = A.attention_reference(q, k, v)
+    forced = []
+    for consumers, full_heads in FORCED_PLANS:
+        plan = A.wgmma_plan(n * h, t, consumers, full_heads)
+        out = A.flash_kernel(q, k, v, plan=plan)
+        row = {"kernel": "flash_attention", "variant": plan.variant, "shape": list(FORCED_PLAN_SHAPE),
+               "grid": list(plan.grid), "full_heads": plan.full_heads,
+               "max_abs_err": float((out.float() - ref.float()).abs().max()), "tolerance": A.bf16_parity_bar(ref)}
+        print(json.dumps(row), flush=True)
+        check(row["max_abs_err"] <= row["tolerance"], f"flash attention, forced plan: {row}")
+        forced.append(row)
     report["kernel_checks"] = rows
+    report["kernel_forced_plans"] = forced
     return rows
 
 
@@ -350,11 +401,11 @@ def phase_slice(torch, np, report, card):
         # --- the main path: counts from 0, concurrent requests, counts read after
         counters = get_counters()
         before = counters.snapshot()
-        flash_kernel.launches = 0
+        _zero_launches(flash_kernel)
         with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
             futures = {name: pool.submit(svc.restore, data) for name, (data, _) in reqs.items()}
             results = {name: f.result() for name, f in futures.items()}
-        launches = flash_kernel.launches
+        launches = _read_launches("flash_attention", flash_kernel)
         after = counters.snapshot()
         delta = _counter_delta(before, after)
         forwards = int(delta.get("restore_batches.256", 0) + delta.get("restore_batches.512", 0))
@@ -418,6 +469,26 @@ def phase_slice(torch, np, report, card):
             "blend_tiles": {"super_resolution": blend_launches}}
 
 
+# launches of each kernel variant on the driven paths, summed over the paths
+PATH_LAUNCHES_BY_VARIANT: dict = {"flash_attention": {}, "blend_tiles": {}}
+
+
+def _zero_launches(kernel) -> None:
+    """Counts to 0 just before a path is driven."""
+    kernel.launches = 0
+    for variant in kernel.launches_by_variant:
+        kernel.launches_by_variant[variant] = 0
+
+
+def _read_launches(name: str, kernel) -> int:
+    """The count just after a path was driven; its split by variant joins the totals."""
+    total = PATH_LAUNCHES_BY_VARIANT[name]
+    for variant, n in kernel.launches_by_variant.items():
+        total[variant] = total.get(variant, 0) + n
+    check(sum(kernel.launches_by_variant.values()) == kernel.launches, f"{name}: counts by variant disagree")
+    return kernel.launches
+
+
 def _counter_delta(before: dict, after: dict) -> dict:
     return {k: after.get(k, 0.0) - before.get(k, 0.0) for k in after if k not in ("uptime_s", "images_per_sec")}
 
@@ -453,12 +524,13 @@ def phase_sr(torch, np, report, svc, engine, cfg):
 
     counters = get_counters()
     before = counters.snapshot()
-    blend_kernel.launches = 0
-    flash_kernel.launches = 0
+    _zero_launches(blend_kernel)
+    _zero_launches(flash_kernel)
     results = {name: svc.restore(data, options={"model": family}) for name, (data, family, _, _) in sr_reqs.items()}
     canvas2048 = imageio.decode_image(sr_reqs["sr2048"][0]).pixels
     (py, pcb, pcr), meta = engine.sr_tiled(canvas2048, "sr-x2", output="yuv420")
-    blend_launches, attn_launches = blend_kernel.launches, flash_kernel.launches
+    blend_launches = _read_launches("blend_tiles", blend_kernel)
+    attn_launches = _read_launches("flash_attention", flash_kernel)
     delta = _counter_delta(before, counters.snapshot())
     tiled_calls = int(sum(v for k, v in delta.items() if k.startswith("sr_tiled_calls.")))
     direct_calls = int(sum(v for k, v in delta.items() if k.startswith("sr_batches.")))
@@ -531,13 +603,13 @@ def phase_diffusion_fusion(np, report, svc, reqs):
 
     counters = get_counters()
     before = counters.snapshot()
-    flash_kernel.launches = 0
+    _zero_launches(flash_kernel)
     d256 = svc.restore(reqs["jpeg256"][0], options=options)
     after256 = flash_kernel.launches
     d512 = svc.restore(reqs["clean512"][0], options=options)
     after512 = flash_kernel.launches
     fused = svc.restore_fusion(fusion_images, "fuse these captures")
-    launches = flash_kernel.launches
+    launches = _read_launches("flash_attention", flash_kernel)
     delta = _counter_delta(before, counters.snapshot())
 
     for name, res, src in (("diffusion256", d256, reqs["jpeg256"][0]), ("diffusion512", d512, reqs["clean512"][0]),
@@ -763,6 +835,8 @@ def phase_sr_throughput(torch, np, report, svc, engine, sr_reqs, card):
 def main() -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one NVIDIA card.")
     parser.add_argument("--report", help="also write the full report as JSON to this path")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after the kernels' build and checks; prints no result lines")
     args = parser.parse_args()
     try:
         import torch
@@ -808,12 +882,27 @@ def main() -> int:
 
     rows = phase_kernels(torch, report)
     blend_rows = phase_blend_kernel(torch, report)
+    if args.kernels_only:
+        print(f"kernels only: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     launches = phase_slice(torch, np, report, card)
 
     main_row = next(r for r in rows if r["shape"] == [8, 4, 4096, 64])
     blend_row = blend_rows[0]  # the 2K -> 4K grid the SR path runs
+    keys = ("variant", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # every variant at every shape it was held at, with its launches on the driven paths
+    attention_variants = [
+        {**{k: r[k] for k in keys}, "shape": r["shape"], "dtype": r["dtype"],
+         "launches": PATH_LAUNCHES_BY_VARIANT["flash_attention"].get(r["variant"], 0)} for r in rows]
+    blend_variants = [
+        {**{k: r[k] for k in keys}, "variant": variant, **by, "canvas": r["canvas"], "tile": r["tile"],
+         "overlap": r["overlap"], "scale": r["scale"],
+         "launches": PATH_LAUNCHES_BY_VARIANT["blend_tiles"].get(variant, 0)}
+        for r in blend_rows for variant, by in r["by_variant"].items()]
     kernels = [{
         "name": "flash_attention",
+        "variant": main_row["variant"],
+        "variants": attention_variants,
         "route": "cuda",
         "source": f"{PKG}/csrc/flash_attention.cu",
         "replaces": "image_restoration_platform_tpu/ops/pallas/attention.py:78",
@@ -827,6 +916,8 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
     }, {
         "name": "blend_tiles",
+        "variant": blend_row["variant"],
+        "variants": blend_variants,
         "route": "cuda",
         "source": f"{PKG}/csrc/blend_tiles.cu",
         "replaces": "image_restoration_platform_tpu/ops/pallas/blend.py:133",

@@ -7,7 +7,10 @@ the reference's own bar of atol 1e-3 on a 0..255 range (f32 sums of at most
 a few windowed tiles; measured 0 against the XLA fold and 1.5e-5 against the
 Pallas kernel). On the CPU ``ops.cuda.blend.blend_tiles``
 takes the plain fold; the CUDA kernel is held against it on the card by the
-``cuda``-marked tests below and by chip_smoke.py."""
+``cuda``-marked tests below and by chip_smoke.py. What surrounds the kernel
+is tested here: the wrapper's choice of the vector or the scalar variant,
+and a plain emulation of the kernel's per-block contributor lists, which must
+give the plain fold bit for bit."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -162,11 +165,134 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert B.blend_kernel.launches == launches
 
 
+# ------------------------------------------- the kernel's variants and its lists
+
+# the variant kernel_variant must choose for GEOMETRIES, in order: with C = 3
+# every length is a multiple of 4 unless an origin or the width is odd
+VARIANT_OF = ["vector", "vector", "vector", "vector", "vector", "vector"]
+# (canvas, tile, overlap, scale) -> variant, beyond GEOMETRIES
+MORE_VARIANTS = [
+    (((2048, 2048), 256, 32, 2), "vector"),  # the 2K -> 4K grid of the SR path
+    (((1024, 1024), 256, 32, 2), "vector"),  # clamped last tile at 768
+    (((99, 67), 32, 8, 1), "scalar"),  # row length 201, clamped origin 35
+    (((100, 66), 32, 8, 1), "scalar"),  # row length 198
+    (((100, 70), 32, 8, 1), "scalar"),  # clamped origin 38: 114 floats in
+]
+
+
+@pytest.mark.parametrize("geometry,variant", list(zip(GEOMETRIES, VARIANT_OF)) + MORE_VARIANTS)
+def test_kernel_variant_follows_the_alignment_rule(geometry, variant):
+    hw, tile, overlap, scale = geometry
+    xs = T.tile_grid(hw[1], tile, tile - overlap)
+    t, out_w, out_xs = tile * scale, hw[1] * scale, tuple(x * scale for x in xs)
+    got = B.kernel_variant(t, 3, out_w, out_xs)
+    lengths = [out_w * 3, t * 3] + [x * 3 for x in out_xs]
+    assert got == variant == ("vector" if all(v % 4 == 0 for v in lengths) else "scalar")
+    assert B.VARIANTS[got] == (4 if got == "vector" else 1)
+
+
+def test_kernel_variant_with_one_channel():
+    assert B.kernel_variant(32, 1, 96, (0, 24, 48, 64)) == "vector"
+    assert B.kernel_variant(32, 1, 96, (0, 24, 48, 62)) == "scalar"  # origin 62
+    assert B.kernel_variant(30, 1, 96, (0, 24)) == "scalar"  # tile rows of 30 floats
+
+
+BLOCK_ROWS, BLOCK_THREADS = 8, 256  # csrc/blend_tiles.cu: kRows, kThreads
+
+
+def _blocked_blend(tiles, out_hw, ys, xs, vec):
+    """The kernel's walk in numpy f32: a block owns 8 canvas rows by a span of
+    256 * vec floats of the flattened [H, W*C] canvas, lists once the tile
+    columns that touch its span and, per row, the tile rows that cover it
+    (both ascending), and every float adds its contributors in that order.
+    Also returns the longest lists met."""
+    n, t, _, c = tiles.shape
+    out_h, out_w = out_hw
+    row_len, tile_len, span_len = out_w * c, t * c, BLOCK_THREADS * vec
+    window = T._hann_window(t)
+    flat = tiles.reshape(len(ys), len(xs), t, tile_len)
+    out = np.zeros((out_h, row_len), np.float32)
+    longest = [0, 0]
+    for y0 in range(0, out_h, BLOCK_ROWS):
+        for j0 in range(0, row_len, span_len):
+            j1 = min(j0 + span_len, row_len)
+            cols = [cx for cx in range(len(xs)) if xs[cx] * c < j1 and (xs[cx] + t) * c > j0]
+            j = np.arange(j0, j1)
+            for y in range(y0, min(y0 + BLOCK_ROWS, out_h)):
+                rows = [r for r in range(len(ys)) if ys[r] <= y < ys[r] + t]
+                longest = [max(longest[0], len(rows)), max(longest[1], len(cols))]
+                acc = np.zeros(j1 - j0, np.float32)
+                wsum = np.zeros(j1 - j0, np.float32)
+                for r in rows:
+                    ty = y - ys[r]
+                    for cx in cols:
+                        jt = j - xs[cx] * c
+                        inside = (jt >= 0) & (jt < tile_len)
+                        w = window[ty, j[inside] // c - xs[cx]]
+                        acc[inside] = acc[inside] + flat[r, cx, ty, jt[inside]] * w
+                        wsum[inside] = wsum[inside] + w
+                out[y, j0:j1] = acc / np.maximum(wsum, np.float32(1e-8))
+    return out.reshape(out_h, out_w, c), longest
+
+
+@pytest.mark.parametrize("vec", [4, 1], ids=["vector", "scalar"])
+@pytest.mark.parametrize("hw,tile,overlap,scale", GEOMETRIES + [((99, 67), 32, 8, 1), ((1024, 1024), 256, 32, 1)],
+                         ids=IDS + ["odd", "1024-clamped"])
+def test_contributor_lists_give_the_plain_fold(hw, tile, overlap, scale, vec):
+    """Rows and columns found once per block, walked in ascending order, are
+    the brute-force fold bit for bit, also with clamped last tiles (1024 with
+    stride 224 ends 672, 768) and with overlap > T/2, where the lists grow
+    longer than two."""
+    tiles, ys, xs = _case(hw, tile, overlap, scale)
+    out_hw = (hw[0] * scale, hw[1] * scale)
+    out_ys, out_xs = tuple(y * scale for y in ys), tuple(x * scale for x in xs)
+    got, longest = _blocked_blend(tiles, out_hw, out_ys, out_xs, vec)
+    ref = T.blend_tiles(torch.from_numpy(tiles), out_hw, out_ys, out_xs).numpy()
+    np.testing.assert_array_equal(got, ref)
+    # brute force: the most tiles over any one pixel, by rows and by columns
+    t = tile * scale
+    cover_y = max(sum(y0 <= y < y0 + t for y0 in out_ys) for y in range(out_hw[0]))
+    cover_x = max(sum(x0 <= x < x0 + t for x0 in out_xs) for x in range(out_hw[1]))
+    assert longest[0] == cover_y and longest[1] >= cover_x
+    if (hw, tile, overlap) == ((64, 56), 32, 24):
+        assert cover_y == 4 and cover_x == 4
+    if hw == (1024, 1024):
+        assert out_ys[-2:] == (672, 768) and cover_y == 2  # the clamped tile overlaps its neighbour by 160 rows
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["chosen", "scalar"])
+@pytest.mark.parametrize("hw,tile,overlap,scale", GEOMETRIES + [((99, 67), 32, 8, 1), ((1024, 1024), 256, 32, 2)],
+                         ids=IDS + ["odd", "1024-clamped-scale2"])
+def test_cuda_kernel_variants_equal_the_plain_fold(cuda_device, hw, tile, overlap, scale, variant):
+    """Both variants repeat the plain fold's f32 arithmetic: the error is 0."""
+    tiles, ys, xs = _case(hw, tile, overlap, scale)
+    out_hw = (hw[0] * scale, hw[1] * scale)
+    out_ys, out_xs = tuple(y * scale for y in ys), tuple(x * scale for x in xs)
+    t = torch.from_numpy(tiles).to(cuda_device)
+    if variant == "chosen":
+        variant = B.kernel_variant(tile * scale, 3, out_hw[1], out_xs)
+    by_variant = dict(B.blend_kernel.launches_by_variant)
+    out = B.blend_kernel(t, out_hw, out_ys, out_xs, variant=variant)
+    torch.cuda.synchronize()
+    assert B.blend_kernel.launches_by_variant[variant] == by_variant[variant] + 1
+    assert torch.equal(out, T.blend_tiles(t, out_hw, out_ys, out_xs))
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_the_vector_variant_on_odd_geometry(cuda_device):
+    tiles, ys, xs = _case((99, 67), 32, 8, 1)
+    launches = B.blend_kernel.launches
+    with pytest.raises(ValueError):
+        B.blend_kernel(torch.from_numpy(tiles).to(cuda_device), (99, 67), ys, xs, variant="vector")
+    assert B.blend_kernel.launches == launches
 
 
 @pytest.mark.cuda
