@@ -44,7 +44,19 @@ failure (exit code 1):
 4. throughput: steady-state images/s and p50 request latency at 256 b1 and
    512 b8, end to end through RestoratorService, and the engine's step time;
    warm wall time of one 2048 -> 4096 sr-x2 request and of ``engine.sr_tiled``
-   alone, with the profiler's split of one such step.
+   alone, with the profiler's split of one such step;
+5. service graph: the HTTP service's ``AppContext`` on the card (batcher,
+   two queue workers) below the HTTP layer, which the card's machine cannot
+   import (no aiohttp): ``warmup_serving`` at 256 and 512, then 48 jobs
+   through ``api/submit.py:submit_job`` from 8 threads (256 and 512 JPEGs, a
+   3000 x 2000 upload that ``resize_u8`` downscales on the card, a fusion
+   job, an ``sr-x2`` job, sync jobs) with the kernels' counts set to 0 before
+   and read after: every job SUCCEEDED on its first attempt, one credit
+   charge each, one attention launch per UNet forward at 256 and 512, one
+   blend launch; jobs/s and p50/p95 from submission to SUCCEEDED; then the
+   HDR pre-pass (``engine.hdr_deblur_batch``: the disk channel fires, card vs
+   CPU), ``ClassifierService`` and ``resize_u8`` card vs CPU, and
+   ``get_health_status``.
 
 ``--report PATH`` also writes the full report as JSON to PATH;
 ``--kernels-only`` stops after phase 2 (a quick check of a changed kernel:
@@ -107,9 +119,10 @@ CPU_MEAN_LEVELS, CPU_P999_LEVELS, CPU_SCORES_ATOL = 1.0, 4.0, 1e-4
 # the blend: (canvas h x w, tile, overlap, scale, where the path uses it);
 # tiles of T*scale land at scaled origins, as ops/tile.py tiled_apply calls it
 BLEND_MAIN = ((2048, 2048), 256, 32, 2)
+BLEND_CLAMPED = ((1024, 1024), 256, 32, 2)
 BLEND_SHAPES = [
     (*BLEND_MAIN, "sr-x2 2048 -> 4096, 81 tiles"),
-    ((1024, 1024), 256, 32, 2, "sr-x2 1024 bucket, clamped last tile"),
+    (*BLEND_CLAMPED, "sr-x2 1024 bucket, clamped last tile"),
     ((1024, 1024), 256, 128, 1, "overlap = T/2"),
     ((100, 68), 32, 8, 1, "clamped in both axes"),
     ((99, 67), 32, 8, 1, "odd origins and row length: scalar only"),
@@ -119,6 +132,17 @@ BLEND_SHAPES = [
 # the reference's own bar on a 0..255 range (tests/test_pallas_blend.py); the
 # kernel repeats the plain fold's f32 arithmetic, so the error should be 0
 BLEND_ATOL = 1e-3
+
+# the service phase: async JPEG jobs per bucket (256 and 512), sync jobs, and
+# the seconds every job has to reach SUCCEEDED
+SERVICE_JOBS_PER_BUCKET = 20
+SERVICE_SYNC_JOBS = 5
+SERVICE_DEADLINE_S = 120.0
+# the HDR pre-pass: a disk PSF its float path identifies at 16 bits; card
+# against CPU at 1e-3 on [0, 1] (the FFTs and reductions run in other orders)
+HDR_RADIUS = 2.5
+HDR_ATOL = 1e-3
+CLASSIFY_ATOL = 1e-4
 
 
 def fail(message: str) -> None:
@@ -141,9 +165,8 @@ def card_line() -> str:
 # ----------------------------------------------------------------- inputs
 
 
-def _photo(np, seed: int, size: int):
-    """Voronoi mosaic with shaded cells, fine sinusoid texture and noise."""
-    rng = np.random.default_rng(seed)
+def _cells(np, rng, size: int):
+    """Voronoi mosaic with shaded cells, rendered at 2x and box-downsampled."""
     ss = size * 2
     k = int(rng.integers(10, 24))
     pts = rng.uniform(0, ss, size=(k, 2))
@@ -152,7 +175,13 @@ def _photo(np, seed: int, size: int):
     d2 = (yy[None] - pts[:, 0, None, None]) ** 2 + (xx[None] - pts[:, 1, None, None]) ** 2
     dmin = np.sqrt(d2.min(0))
     img = colors[np.argmin(d2, axis=0)] * (1.0 - 0.25 * (dmin / dmin.max())[..., None])
-    img = img.reshape(size, 2, size, 2, 3).mean(axis=(1, 3))
+    return img.reshape(size, 2, size, 2, 3).mean(axis=(1, 3))
+
+
+def _photo(np, seed: int, size: int):
+    """Voronoi mosaic with shaded cells, fine sinusoid texture and noise."""
+    rng = np.random.default_rng(seed)
+    img = _cells(np, rng, size)
     img += rng.normal(0, 0.02, img.shape)
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
     tex = np.zeros((size, size), np.float32)
@@ -168,7 +197,7 @@ def _photo_large(np, seed: int, h: int, w: int):
     Voronoi cells from a 1/8-size label map (sharp edges), a smooth colour
     field, sinusoid texture and sensor noise."""
     rng = np.random.default_rng(seed)
-    cells = _photo(np, seed, 256)[: -(-h // 8), : -(-w // 8)]
+    cells = _photo(np, seed, max(256, -(-max(h, w) // 8)))[: -(-h // 8), : -(-w // 8)]
     img = np.repeat(np.repeat(cells, 8, axis=0), 8, axis=1)[:h, :w].copy()
     yy = np.arange(h, dtype=np.float32)[:, None]
     xx = np.arange(w, dtype=np.float32)[None, :]
@@ -307,6 +336,31 @@ def phase_blend_kernel(torch, report):
             row["library_max_abs_err"] = float((fold() - ref).abs().max())
             check(row["library_max_abs_err"] <= BLEND_ATOL, f"F.fold disagrees with the plain fold: {row}")
             row["library_ms"] = time_ms(torch, fold, groups=10, calls=3)
+        elif (hw, tile, overlap, scale) == BLEND_CLAMPED:
+            # 25 tiles -> 2048 x 2048: the last tile of each axis is clamped
+            # (origins 0, 448, 896, 1344, 1536), so no single fold stride
+            # fits; the library yardstick is index_add_ of the windowed tiles
+            # into the flat canvas, then the divide. The flat indices and the
+            # summed window depend on the grid alone and are made once
+            # outside the timing; windowing, scatter-add and divide are timed.
+            r = torch.arange(t, device="cuda")
+            tile_rows = torch.tensor(out_ys, device="cuda")[:, None] + r  # [ny, t]
+            tile_cols = torch.tensor(out_xs, device="cuda")[:, None] + r  # [nx, t]
+            flat = tile_rows[:, None, :, None] * out_hw[1] + tile_cols[None, :, None, :]  # [ny, nx, t, t]
+            idx = (flat.reshape(-1, t, t, 1) * 3 + torch.arange(3, device="cuda")).reshape(-1)
+            window = torch.from_numpy(T._hann_window(t)).cuda()
+            wins = window[None, :, :, None].expand(tiles.shape[0], t, t, 3).reshape(-1)
+            wsum = torch.zeros(out_hw[0] * out_hw[1] * 3, device="cuda").index_add_(0, idx, wins)
+
+            def scatter():
+                acc = torch.zeros(out_hw[0] * out_hw[1] * 3, device="cuda")
+                acc.index_add_(0, idx, (tiles * window[None, :, :, None]).reshape(-1))
+                return (acc / wsum).reshape(*out_hw, 3)
+
+            row["library_max_abs_err"] = float((scatter() - ref).abs().max())
+            check(row["library_max_abs_err"] <= BLEND_ATOL, f"index_add_ disagrees with the plain fold: {row}")
+            row["library_ms"] = time_ms(torch, scatter, groups=10, calls=3)
+            del idx, wins, wsum
         print(json.dumps(row), flush=True)
         check(row["max_abs_err"] <= BLEND_ATOL, f"blend kernel {where}: {row}")
         rows.append(row)
@@ -639,6 +693,188 @@ def phase_diffusion_fusion(np, report, svc, reqs):
     return launches
 
 
+def _service_uploads(np, imageio, ctx, preprocess):
+    """The service phase's jobs: (kind, [(filename, bytes)], options, sync).
+    Each upload's JPEG quality is the first from 85 down whose preprocessed
+    JPEG the deterministic mock moderation passes (it rejects by the
+    re-encoded size), so every job reaches the restorator."""
+    u8 = lambda x: np.clip(np.round(x * 255.0), 0, 255).astype(np.uint8)  # noqa: E731
+
+    def passing(pixels, name):
+        for quality in range(85, 60, -1):
+            data = imageio.encode_jpeg(pixels, quality=quality)
+            if ctx.moderation.moderate(preprocess(data, ctx)[1], {"userId": "smoke-precheck"})["allowed"]:
+                return (name, data)
+        fail(f"no JPEG quality of {name} passes the mock moderation")
+
+    photos = {size: [u8(_photo(np, 40 + i, size)) for i in range(4)] for size in (256, 512)}
+    jobs = []
+    for i in range(SERVICE_JOBS_PER_BUCKET):
+        for size in (256, 512):
+            jobs.append((f"{size}", [passing(photos[size][i % 4], f"p{size}_{i}.jpg")], {}, False))
+    for i in range(SERVICE_SYNC_JOBS):
+        size = (256, 512)[i % 2]
+        jobs.append((f"{size}_sync", [passing(np.ascontiguousarray(photos[size][i % 4][::-1]), f"s{i}.jpg")], {}, True))
+    jobs.append(("3000x2000", [passing(_photo_large(np, 21, 2000, 3000), "big.jpg")], {}, False))
+    jobs.append(("fusion512", [passing(photos[512][i], f"f{i}.jpg") for i in range(3)], {}, False))
+    jobs.append(("sr-x2_1024x768", [passing(_photo_large(np, 22, 768, 1024), "sr.jpg")], {"model": "sr-x2"}, False))
+    return jobs
+
+
+def phase_service_graph(torch, np, report, card):
+    """The HTTP service's graph on the card, below the HTTP layer (the card's
+    machine has no aiohttp): AppContext with the batcher and two queue
+    workers, warmed at 256 and 512, then jobs through the aiohttp-free
+    submission path, with the kernels' counts set to 0 before and read after;
+    then the HDR pre-pass, the classifier and the resize on the card against
+    the CPU, and the restorator's health status."""
+    from image_restoration_platform_tpu_torch import imageio
+    from image_restoration_platform_tpu_torch.api import AppContext
+    from image_restoration_platform_tpu_torch.api.submit import preprocess, submit_job
+    from image_restoration_platform_tpu_torch.classify import ClassifierService
+    from image_restoration_platform_tpu_torch.config import Config, ServingConfig
+    from image_restoration_platform_tpu_torch.obs.metrics import get_counters
+    from image_restoration_platform_tpu_torch.ops.cuda.attention import flash_kernel
+    from image_restoration_platform_tpu_torch.ops.cuda.blend import blend_kernel
+    from image_restoration_platform_tpu_torch.ops.deblur import disk_psf
+    from image_restoration_platform_tpu_torch.ops.resize import fit_inside, resize_u8
+    from image_restoration_platform_tpu_torch.serve import RestorationEngine
+    from image_restoration_platform_tpu_torch.serve.jobs import JobState
+
+    config = Config()
+    config.serving = ServingConfig(size_buckets=(256, 512, 1024), max_batch=8)
+    ctx = AppContext(config=config, queue_workers=2, device="cuda")
+    try:
+        t = time.perf_counter()
+        warm = ctx.engine.warmup_serving(families=("restore-unet",), sizes=(256, 512))
+        out = {"card": card, "warmup_s": time.perf_counter() - t, "warmup_surfaces_s": warm}
+        print(json.dumps({"service_warmup": out}), flush=True)
+        jobs = _service_uploads(np, imageio, ctx, preprocess)
+        ctx.user_store.grant("smoke", 1000)
+
+        # --- the path: counts from 0, every job submitted, counts read after
+        counters = get_counters()
+        before = counters.snapshot()
+        _zero_launches(flash_kernel)
+        _zero_launches(blend_kernel)
+
+        def submit(index):
+            kind, images, options, sync = jobs[index]
+            t_submit = time.time()
+            status, body, _ = submit_job(ctx, {"id": "smoke"}, images, None, options,
+                                         f"smoke-{index}", None, sync)
+            return index, t_submit, time.time(), status, body
+
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            submitted = list(pool.map(submit, range(len(jobs))))
+        ids = {}
+        for index, t_submit, t_return, status, body in submitted:
+            sync = jobs[index][3]
+            check(status == (200 if sync else 202), f"job {jobs[index][0]}: HTTP {status} {body}")
+            ids[body["id"]] = (index, t_submit)
+        deadline = time.time() + SERVICE_DEADLINE_S
+        done = (JobState.SUCCEEDED, JobState.FAILED, JobState.DEAD_LETTER)
+        while not all(ctx.jobs.get(j).state in done for j in ids) and time.time() < deadline:
+            time.sleep(0.005)
+        launches = {"flash_attention": _read_launches("flash_attention", flash_kernel),
+                    "blend_tiles": _read_launches("blend_tiles", blend_kernel)}
+        delta = _counter_delta(before, counters.snapshot())
+
+        latency, by_kind, outside = [], {}, []
+        for job_id, (index, t_submit) in ids.items():
+            kind, images, options, _ = jobs[index]
+            job = ctx.jobs.get(job_id)
+            check(job.state is JobState.SUCCEEDED and job.attempts == 1,
+                  f"job {kind}: {job.state.value} after {job.attempts} attempts: {job.error}")
+            res = job.result
+            check(res["success"] is True, f"job {kind}: {res.get('error')}")
+            decoded = _decode_result(imageio, res)
+            src = imageio.decode_image(images[0][1])
+            h, w = src.height, src.width
+            w, h = fit_inside(w, h, config.upload.max_dimension)
+            scale = 2 if options.get("model") == "sr-x2" else 1
+            check((decoded.height, decoded.width) == (h * scale, w * scale),
+                  f"job {kind}: output {decoded.height}x{decoded.width}, expected {h * scale}x{w * scale}")
+            latency.append(job.updated_at - t_submit)
+            # submission (validate, preprocess, moderation, credits) and queueing
+            outside.append(latency[-1] - res["timings"]["total_ms"] / 1e3)
+            by_kind.setdefault(kind.split("_")[0], []).append(job.updated_at - t_submit)
+        big = next(j for j, (i, _) in ids.items() if jobs[i][0] == "3000x2000")
+        check("resize_2048x1365" in ctx.jobs.get(big).payload["preprocessOperations"][0],
+              f"3000x2000 upload: {ctx.jobs.get(big).payload['preprocessOperations']}")
+        charges = [e for e in ctx.ledger.entries() if e["jobId"] in ids and e["amount"] < 0]
+        check(sorted(e["jobId"] for e in charges) == sorted(ids), f"{len(charges)} charges for {len(ids)} jobs")
+        forwards = int(delta.get("restore_batches.256", 0) + delta.get("restore_batches.512", 0)
+                       + delta.get("fusion_batches.512", 0))
+        check(forwards > 0 and launches["flash_attention"] == forwards,
+              f"attention launches {launches['flash_attention']} != UNet forwards at 256 and 512 ({forwards})")
+        check(delta.get("sr_tiled_calls.1024") == 1 and launches["blend_tiles"] == 1,
+              f"blend launches {launches['blend_tiles']}, sr_tiled calls {delta.get('sr_tiled_calls.1024')}")
+        wall = max(j.updated_at for j in map(ctx.jobs.get, ids)) - min(t for _, t in ids.values())
+        restores = sum(1 for kind, *_ in jobs if kind.split("_")[0] in ("256", "512"))
+        q = lambda xs, p: 1e3 * float(np.percentile(xs, p))  # noqa: E731
+        out.update({
+            "jobs": len(ids), "jobs_per_s": len(ids) / wall, "wall_s": wall,
+            "p50_ms": q(latency, 50), "p95_ms": q(latency, 95),
+            "p50_ms_by_kind": {k: q(v, 50) for k, v in sorted(by_kind.items())},
+            # the async submissions' burst (a sync submission returns with its result)
+            "submit_burst_s": (max(t for i, _, t, _, _ in submitted if not jobs[i][3])
+                               - min(t for _, t, _, _, _ in submitted)),
+            "p50_ms_outside_restorator": q(outside, 50),
+            "mean_batch_256_512": restores / max(1, delta.get("restore_batches.256", 0)
+                                                 + delta.get("restore_batches.512", 0)),
+            "launches": launches, "unet_forwards_le_512": forwards, "charges": len(charges),
+            "batches": {k: v for k, v in delta.items() if k.endswith(("batches.256", "batches.512", "batches.1024"))
+                        or k.startswith("sr_tiled_calls")},
+        })
+        print(json.dumps({"service_graph": out}), flush=True)
+
+        # --- the HDR pre-pass on the card against the port's CPU run
+        cpu_engine = RestorationEngine(device="cpu", dtype=torch.float32, serving_config=config.serving)
+        hdr = {}
+        for size in (256, 512):
+            blurred = np.clip(_motion_blur(np, _cells(np, np.random.default_rng(2), size), disk_psf(HDR_RADIUS)), 0, 1)
+            canvas = (np.round(blurred * 65535.0) / 65535.0).astype(np.float32)[None]
+            args = (canvas, np.asarray([[size, size]], np.int32), np.zeros((1,), np.float32))
+            card_out, _ = ctx.engine.hdr_deblur_batch(*args)
+            cpu_out, _ = cpu_engine.hdr_deblur_batch(*args)
+            times = []
+            for _ in range(5):
+                t = time.perf_counter()
+                ctx.engine.hdr_deblur_batch(*args)
+                times.append(time.perf_counter() - t)
+            hdr[size] = {"fired_card": not np.array_equal(card_out, canvas),
+                         "fired_cpu": not np.array_equal(cpu_out, canvas),
+                         "max_abs_vs_cpu": float(np.abs(card_out - cpu_out).max()),
+                         "ms": 1e3 * statistics.median(times)}
+            check(hdr[size]["fired_card"] and hdr[size]["fired_cpu"], f"HDR pre-pass at {size}: {hdr[size]}")
+            check(hdr[size]["max_abs_vs_cpu"] <= HDR_ATOL, f"HDR pre-pass at {size}: {hdr[size]}")
+
+        # --- the classifier and the resize on the card against the CPU
+        uploads = {kind: images[0][1] for kind, images, _, _ in jobs}
+        cls_card, cls_cpu = ClassifierService(device="cuda"), ClassifierService(device="cpu")
+        cls = 0.0
+        for kind in ("256", "512", "3000x2000"):
+            a, b = cls_card.analyze(uploads[kind]), cls_cpu.analyze(uploads[kind])
+            cls = max(cls, max(abs(a[k] - b[k]) for k in a))
+        check(cls <= CLASSIFY_ATOL, f"classifier card vs CPU: {cls}")
+        big_px = imageio.decode_image(uploads["3000x2000"]).pixels
+        card_r = resize_u8(big_px, (1365, 2048), device="cuda")
+        diff = np.abs(card_r.cpu().numpy() - resize_u8(big_px, (1365, 2048), device="cpu").numpy())
+        rs = {"max_levels": float(diff.max()), "exact_share": float((diff == 0).mean()),
+              "ms": time_ms(torch, lambda: resize_u8(big_px, (1365, 2048), device="cuda"), groups=5, calls=3)}
+        check(rs["max_levels"] <= 1.0 and rs["exact_share"] >= 0.999, f"resize_u8 card vs CPU: {rs}")
+        health = ctx.restorator.get_health_status()
+        check(health["healthy"] is True, f"health status {health}")
+        checks = {"hdr_prepass": hdr, "classifier_max_abs_vs_cpu": cls, "resize_u8_3000x2000": rs,
+                  "healthy": health["healthy"]}
+        print(json.dumps({"service_checks": checks}), flush=True)
+        report["service_graph"] = {**out, "checks": checks, "counters": delta}
+    finally:
+        ctx.shutdown()
+    return launches
+
+
 def phase_throughput(torch, np, report, svc, engine, reqs, card):
     from image_restoration_platform_tpu_torch import imageio
     from image_restoration_platform_tpu_torch.obs.metrics import get_counters
@@ -886,6 +1122,9 @@ def main() -> int:
         print(f"kernels only: {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     launches = phase_slice(torch, np, report, card)
+    service = phase_service_graph(torch, np, report, card)
+    for name, n in service.items():
+        launches[name]["service_graph"] = n
 
     main_row = next(r for r in rows if r["shape"] == [8, 4, 4096, 64])
     blend_row = blend_rows[0]  # the 2K -> 4K grid the SR path runs

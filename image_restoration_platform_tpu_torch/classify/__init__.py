@@ -1,5 +1,6 @@
-"""Degradation classification of the port (masked, batched, on the device)."""
+"""Degradation classification of the port: the host-facing service and the
+masked, batched classification of the restore program."""
 
-from .classifier import DEGRADATION_ORDER, DEGRADATION_TYPES
+from .classifier import DEGRADATION_ORDER, DEGRADATION_TYPES, ClassifierService, classify_scores
 
-__all__ = ["DEGRADATION_ORDER", "DEGRADATION_TYPES"]
+__all__ = ["ClassifierService", "DEGRADATION_ORDER", "DEGRADATION_TYPES", "classify_scores"]

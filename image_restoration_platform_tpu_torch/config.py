@@ -1,18 +1,56 @@
-"""Serving configuration with environment overrides.
+"""Typed configuration with environment overrides.
 
-The port's copy of the fields of image_restoration_platform_tpu/config.py
-(``ServingConfig``) that the serving paths read: same environment variables,
-same defaults.
+The port's copy of image_restoration_platform_tpu/config.py: the boot-time
+secrets gate (``assert_required_secrets``), the rate-limit, upload, credits
+and queue configs, ``ServingConfig`` and ``Config`` / ``load_config``; same
+environment variables, same defaults.
 
 Not ported: ``SERVE_FOLD_W`` / ``SERVE_FOLD_W_SR``. The W-fold
 (models/folded.py in the JAX package) is a TPU lane-fill reparameterization
-of the same function; it has no counterpart here.
+of the same function; it has no counterpart here. ``MeshConfig`` waits for
+the port of ``parallel/``.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 from dataclasses import dataclass, field
+
+
+# Required in production deployments (reference: config/secrets.js:1-8). In dev
+# every consumer degrades to a local fake, mirroring the reference's mock tiers.
+REQUIRED_SECRETS = (
+    "FIRESTORE_CREDS",
+    "REDIS_URL",
+    "STRIPE_WEBHOOK_SECRET",
+    "NEXT_PUBLIC_API_URL",
+    "LOG_LEVEL",
+)
+
+
+def list_required_secrets() -> tuple[str, ...]:
+    return REQUIRED_SECRETS
+
+
+def assert_required_secrets(env: dict | None = None, *, exit_on_missing: bool = True) -> list[str]:
+    """Fail-fast startup gate (reference: config/secrets.js:17-38).
+
+    Returns the list of missing secrets; exits the process when
+    ``exit_on_missing`` and anything is missing. ``ALLOW_DEGRADED=1`` is an
+    explicit dev/TPU-bench opt-out (all external clients run as local fakes);
+    the default is fail-fast, matching the reference's secrets.js gate.
+    """
+    env = env if env is not None else os.environ
+    missing = [k for k in REQUIRED_SECRETS if not env.get(k)]
+    if missing and env.get("ALLOW_DEGRADED", "0") != "1" and exit_on_missing:
+        print(
+            f"[secrets] Missing required secrets: {', '.join(missing)}. "
+            "Set them in the environment (the reference injects them via Doppler).",
+            file=sys.stderr,
+        )
+        raise SystemExit(1)
+    return missing
 
 
 def _env_int(name: str, default: int) -> int:
@@ -27,6 +65,44 @@ def _env_float(name: str, default: float) -> float:
         return float(os.environ.get(name, default))
     except (TypeError, ValueError):
         return default
+
+
+@dataclass
+class RateLimitConfig:
+    # knob names follow the reference (middleware/rateLimit.js:74-84)
+    user_limit: int = field(default_factory=lambda: _env_int("RATE_LIMIT_USER_LIMIT", 120))
+    user_interval_s: int = field(default_factory=lambda: _env_int("RATE_LIMIT_USER_INTERVAL", 60))
+    ip_limit: int = field(default_factory=lambda: _env_int("RATE_LIMIT_IP_LIMIT", 100))
+    ip_interval_s: int = field(default_factory=lambda: _env_int("RATE_LIMIT_IP_INTERVAL", 60))
+
+
+@dataclass
+class UploadConfig:
+    # reference: middleware/uploadValidation.js:6-9, imagePreprocess.js:4-5
+    max_file_size_bytes: int = 10 * 1024 * 1024
+    max_dimension: int = 2048
+    jpeg_quality: int = 85
+    max_images_per_call: int = 3
+    accepted_mimes: tuple[str, ...] = ("image/jpeg", "image/png", "image/webp")
+    accepted_extensions: tuple[str, ...] = (".jpg", ".jpeg", ".png", ".webp")
+    retry_after_seconds: int = 60
+
+
+@dataclass
+class CreditsConfig:
+    # reference: services/credits.js:14-16
+    daily_free_limit: int = field(default_factory=lambda: _env_int("CREDITS_DAILY_FREE_LIMIT", 3))
+    cache_ttl_seconds: int = 60
+
+
+@dataclass
+class QueueConfig:
+    # reference: queues/jobQueue.js:4-9,37-45
+    attempts: int = field(default_factory=lambda: _env_int("JOBS_MAX_ATTEMPTS", 5))
+    backoff_base_ms: int = field(default_factory=lambda: _env_int("JOBS_BACKOFF_BASE_MS", 500))
+    backoff_jitter: float = 0.3
+    keep_completed: int = field(default_factory=lambda: _env_int("JOBS_KEEP_COMPLETED", 100))
+    keep_failed: int = field(default_factory=lambda: _env_int("JOBS_KEEP_FAILED", 500))
 
 
 @dataclass
@@ -57,8 +133,9 @@ class ServingConfig:
     deblur: bool = field(default_factory=lambda: _env_int("SERVE_DEBLUR", 1) == 1)
     # gated JPEG deblocking stage (ops/deblock.py)
     deblock: bool = field(default_factory=lambda: _env_int("SERVE_DEBLOCK", 1) == 1)
-    # 16-bit PNG float deblur pre-pass; not ported yet, so where the native
-    # codec exists such uploads raise NotImplementedError while this is on
+    # 16-bit PNG uploads decode to raw u16 and run the float Wiener deblur
+    # with the disk (defocus) channel on before 8-bit quantization
+    # (ops/deblur.py deblur_canvas_f32); 8-bit traffic is untouched
     hdr_deblur: bool = field(default_factory=lambda: _env_int("SERVE_HDR_DEBLUR", 1) == 1)
     # space-to-depth IO for the s2d-stem UNet families: the residual add runs
     # in s2d layout and egress reads the s2d tensor directly
@@ -68,3 +145,21 @@ class ServingConfig:
     restore_egress: str = field(
         default_factory=lambda: os.environ.get("SERVE_RESTORE_EGRESS", "yuv420")
     )
+
+
+@dataclass
+class Config:
+    port: int = field(default_factory=lambda: _env_int("PORT", 8080))
+    log_level: str = field(default_factory=lambda: os.environ.get("LOG_LEVEL", "info"))
+    health_metric_sample_size: int = field(
+        default_factory=lambda: _env_int("HEALTH_METRIC_SAMPLE_SIZE", 1000)
+    )
+    rate_limit: RateLimitConfig = field(default_factory=RateLimitConfig)
+    upload: UploadConfig = field(default_factory=UploadConfig)
+    credits: CreditsConfig = field(default_factory=CreditsConfig)
+    queue: QueueConfig = field(default_factory=QueueConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
+
+
+def load_config() -> Config:
+    return Config()

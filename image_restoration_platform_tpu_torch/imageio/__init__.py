@@ -2,8 +2,9 @@
 
 The port's own copy of image_restoration_platform_tpu/imageio: decode,
 magic-byte sniffing, EXIF auto-orient, JPEG q85 4:4:4 encode with sRGB ICC
-attach and EXIF strip, raw YCbCr 4:2:0 JPEG encode, Lanczos resize. Decoding
-lands in numpy arrays that the engine copies to the device.
+attach and EXIF strip, raw YCbCr 4:2:0 JPEG encode, Lanczos resize, and the
+raw 16-bit PNG decode of the HDR pre-pass (``decode_image_u16``, native codec
+only). Decoding lands in numpy arrays that the engine copies to the device.
 
 The C++ source (csrc/imageio.cpp) is compiled at first use into
 ``build/imageio/`` at the repository root (listed in ``.gitignore``) and
@@ -108,6 +109,11 @@ def _load_native():
             lib.irp_free.argtypes = [ctypes.c_void_p]
             lib.irp_png_bit_depth.restype = ctypes.c_int
             lib.irp_png_bit_depth.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+            lib.irp_decode_png16.restype = ctypes.c_int
+            lib.irp_decode_png16.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int,
+            ]
             lib.irp_resize_rgb8.restype = ctypes.c_int
             lib.irp_resize_rgb8.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -234,6 +240,35 @@ def decode_bit_depth(data: bytes) -> int:
             raise ValueError("corrupt PNG header")
         return depth
     return int(data[24]) if len(data) > 24 else 8  # IHDR bit-depth byte
+
+
+def decode_image_u16(data: bytes) -> np.ndarray:
+    """Decode a PNG to host-endian RGB16 [H, W, 3] uint16 RAW code values.
+
+    8-bit sources are promoted v*257 (exact u8 round trip); 16-bit sources
+    keep full precision — the point of this entry: a defocus disk's spectral
+    ring nulls sit below the 8-bit quantization floor, so the deblur disk
+    channel needs these samples. No EXIF orientation is applied (PNG has no
+    EXIF in our encode path; orientation-bearing formats are 8-bit here).
+    """
+    lib = _load_native()
+    if lib is None:
+        raise RuntimeError("16-bit decode requires the native imageio codec")
+    w = ctypes.c_int()
+    h = ctypes.c_int()
+    c = ctypes.c_int()
+    orient = ctypes.c_int()
+    fmt_code = lib.irp_decode_info(
+        data, len(data), ctypes.byref(w), ctypes.byref(h), ctypes.byref(c), ctypes.byref(orient)
+    )
+    if fmt_code != 2:  # IRP_FMT_PNG
+        raise ValueError("decode_image_u16 accepts PNG only")
+    _check_pixel_budget(w.value, h.value)
+    out = np.empty((h.value, w.value, 3), dtype=np.uint16)
+    rc = lib.irp_decode_png16(data, len(data), out.ctypes.data_as(ctypes.c_void_p), w.value, h.value)
+    if rc != 0:
+        raise ValueError(f"16-bit PNG decode failed (code {rc})")
+    return out
 
 
 def _decode_pillow(data: bytes, auto_orient: bool) -> DecodedImage:  # pragma: no cover

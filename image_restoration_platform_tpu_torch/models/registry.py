@@ -61,6 +61,10 @@ def get_family(name: str) -> ModelFamily:
     return _FAMILIES[name]
 
 
+def list_families() -> list[str]:
+    return sorted(_FAMILIES)
+
+
 class ParamCache:
     """Per-process cache of f32 CPU state dicts: the family's
     ``weights/<family>.npz`` when it exists, else random weights from a

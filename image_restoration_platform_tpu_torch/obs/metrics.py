@@ -1,12 +1,48 @@
-"""In-process serving counters and gauges (images, device seconds, batch
-sizes, host syncs), copied from image_restoration_platform_tpu/obs/metrics.py
-(``Counters``). The request-duration ring buffer of the health route comes
-with the API."""
+"""In-process request metrics and serving counters, copied from
+image_restoration_platform_tpu/obs/metrics.py: the request-duration ring
+buffer behind ``GET /health/ready`` (count / average / nearest-rank p95 over
+the last ``HEALTH_METRIC_SAMPLE_SIZE`` requests, default 1000), and the
+monotonic counters and gauges of the serving loop (images, device seconds,
+batch sizes, host syncs), plus ``host_flag``."""
 
 from __future__ import annotations
 
+import math
+import os
 import threading
 import time
+from collections import deque
+
+
+class RequestMetrics:
+    def __init__(self, sample_size: int | None = None):
+        if sample_size is None:
+            try:
+                sample_size = int(os.environ.get("HEALTH_METRIC_SAMPLE_SIZE", 1000))
+            except ValueError:
+                sample_size = 1000
+        self._samples: deque[float] = deque(maxlen=max(1, sample_size))
+        self._lock = threading.Lock()
+
+    def record(self, duration_ms: float) -> None:
+        if not isinstance(duration_ms, (int, float)) or not math.isfinite(duration_ms):
+            return
+        with self._lock:
+            self._samples.append(float(duration_ms))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            samples = list(self._samples)
+        if not samples:
+            return {"count": 0, "averageMs": 0.0, "p95Ms": 0.0}
+        ordered = sorted(samples)
+        # nearest-rank p95 over the sampled window
+        idx = min(len(ordered) - 1, max(0, math.ceil(0.95 * len(ordered)) - 1))
+        return {
+            "count": len(ordered),
+            "averageMs": round(sum(ordered) / len(ordered), 3),
+            "p95Ms": round(ordered[idx], 3),
+        }
 
 
 class Counters:
@@ -38,7 +74,16 @@ class Counters:
         return out
 
 
+_global_metrics = RequestMetrics()
 _global_counters = Counters()
+
+
+def record_request_duration(duration_ms: float) -> None:
+    _global_metrics.record(duration_ms)
+
+
+def get_request_metrics() -> dict:
+    return _global_metrics.snapshot()
 
 
 def get_counters() -> Counters:

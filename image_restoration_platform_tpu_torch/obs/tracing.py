@@ -104,6 +104,75 @@ class _SpanBuffer:
             for s in spans
         ]
 
+    def export_otlp(self, limit: int = 512) -> dict:
+        """OTLP/JSON-shaped export of the completed-span ring — the exporter
+        the reference spec'd but never bootstrapped (design.md:1494-1530 wires
+        an OTLP endpoint; the runtime spans stay no-ops). An OTLP collector
+        can ingest this payload from ``/v1/admin/traces`` verbatim.
+
+        Span clocks are perf_counter_ns; they are rebased onto the unix epoch
+        at export time so startTimeUnixNano/endTimeUnixNano are real stamps.
+        """
+        epoch_offset_ns = time.time_ns() - time.perf_counter_ns()
+
+        def _value(v: Any) -> dict:
+            if isinstance(v, bool):
+                return {"boolValue": v}
+            if isinstance(v, int):
+                return {"intValue": str(v)}
+            if isinstance(v, float):
+                return {"doubleValue": v}
+            return {"stringValue": str(v)}
+
+        def _attrs(d: dict[str, Any]) -> list[dict]:
+            return [{"key": k, "value": _value(v)} for k, v in d.items()]
+
+        with self._lock:
+            spans = list(self._spans)[-limit:]
+        status_code = {"UNSET": 0, "OK": 1, "ERROR": 2}
+        otlp_spans = []
+        for s in spans:
+            end_ns = s.end_ns or time.perf_counter_ns()
+            otlp_spans.append(
+                {
+                    "traceId": s.trace_id,
+                    "spanId": s.span_id,
+                    **({"parentSpanId": s.parent_id} if s.parent_id else {}),
+                    "name": s.name,
+                    "kind": 1,  # SPAN_KIND_INTERNAL
+                    "startTimeUnixNano": str(s.start_ns + epoch_offset_ns),
+                    "endTimeUnixNano": str(end_ns + epoch_offset_ns),
+                    "attributes": _attrs(s.attributes),
+                    "events": [
+                        {
+                            "name": name,
+                            "timeUnixNano": str(ts + epoch_offset_ns),
+                            "attributes": _attrs(attrs),
+                        }
+                        for name, attrs, ts in s.events
+                    ],
+                    "status": {
+                        "code": status_code.get(s.status, 0),
+                        **({"message": s.status_message} if s.status_message else {}),
+                    },
+                }
+            )
+        return {
+            "resourceSpans": [
+                {
+                    "resource": {
+                        "attributes": _attrs({"service.name": "image-restoration-api"})
+                    },
+                    "scopeSpans": [
+                        {
+                            "scope": {"name": "image_restoration_platform_tpu_torch"},
+                            "spans": otlp_spans,
+                        }
+                    ],
+                }
+            ]
+        }
+
 
 _buffer = _SpanBuffer()
 

@@ -15,7 +15,9 @@ and timed by ``obs.metrics.host_flag``:
 - ``deblur``: the Wiener inversion and the reclassification run only when
   some image fired.
 
-The float HDR pre-pass (``deblur_canvas_f32``) is not ported yet.
+``deblur_canvas_f32`` is the float HDR pre-pass of 16-bit PNG uploads: the
+same estimator, gates and backstop on [0, 1] f32 canvases, with the disk
+channel on.
 """
 
 from __future__ import annotations
@@ -374,6 +376,26 @@ def deblur_canvas_batch(
     raw = _wiener(x, best, compression)
     fire = fire & (_tv(raw, valid_hw) <= TV_RATIO_MAX * _tv(x, valid_hw) + 1e-6)
     return torch.where(fire[:, None, None, None], _to_u8(raw), canvas_u8)
+
+
+def deblur_canvas_f32(
+    x: torch.Tensor,
+    valid_hw: torch.Tensor,
+    compression: torch.Tensor,
+    size: int = ANALYSIS_SIZE,
+    enable_disk: bool = True,
+) -> torch.Tensor:
+    """Gated Wiener deblur on float canvases ([B,H,W,3] in [0, 1] -> same),
+    run on 16-bit samples before any 8-bit quantization, where a defocus
+    disk's spectral ring nulls still carry contrast; non-firing images pass
+    through untouched."""
+    b, h, w, _ = x.shape
+    if h < size or w < size:
+        return x
+    best, fire = select_hypothesis(x.mean(dim=-1), valid_hw, compression, size, enable_disk=enable_disk)
+    raw = _wiener(x, best, compression)
+    fire = fire & (_tv(raw, valid_hw) <= TV_RATIO_MAX * _tv(x, valid_hw) + 1e-6)
+    return torch.where(fire[:, None, None, None], torch.clamp(raw, 0.0, 1.0), x)
 
 
 def deblur_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond):

@@ -3,16 +3,18 @@
 Counterpart of the single-device surfaces of
 image_restoration_platform_tpu/serve/engine.py: ``restore_batch`` and
 ``restore_batch_async`` (the standard and the diffusion families),
-``fuse_batch``, ``sr_batch`` and ``sr_tiled``. Restore batches are padded to
-a power-of-two bucket by repeating the last row; every surface runs its
-program on the engine's device and fetches all outputs in one synchronising
-device->host copy. Device seconds are overlap-corrected across pipelined
-batches.
+``fuse_batch``, ``hdr_deblur_batch`` (the 16-bit PNG pre-pass), ``sr_batch``,
+``sr_tiled``, and the boot-time ``warmup`` / ``warmup_serving``. Restore
+batches are padded to a power-of-two bucket by repeating the last row; every
+surface runs its program on the engine's device and fetches all outputs in
+one synchronising device->host copy. Device seconds are overlap-corrected
+across pipelined batches.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
-never falls back to the CPU by itself. The HDR deblur pre-pass, mesh serving
-(``sr_spatial``, the mesh tiled program), sharding and the executable disk
-cache are not ported.
+never falls back to the CPU by itself. Mesh serving (``sr_spatial``, the mesh
+tiled program) and sharding wait for the port of ``parallel/``. The
+executable disk cache (serve/exec_cache.py) has no counterpart: it stores
+compiled XLA executables, and an eager program has none.
 """
 
 from __future__ import annotations
@@ -307,6 +309,21 @@ class RestorationEngine:
         )
         return fused, scores, meta
 
+    def hdr_deblur_batch(
+        self, x_f32: np.ndarray, valid_hw: np.ndarray, compression: np.ndarray
+    ) -> tuple[np.ndarray, dict]:
+        """Float Wiener deblur with the disk channel on: the 16-bit PNG
+        pre-pass (ops/deblur.py deblur_canvas_f32). x_f32 [N,B,B,3] in
+        [0, 1], before any 8-bit quantization."""
+        from ..ops.deblur import deblur_canvas_f32
+
+        args = (
+            self._to_device(np.asarray(x_f32, np.float32)),
+            torch.from_numpy(np.asarray(valid_hw, np.int32)).to(self.device),
+            torch.from_numpy(np.asarray(compression, np.float32)).to(self.device),
+        )
+        return self._run_sync(f"hdr_deblur/{x_f32.shape[1]}", lambda: deblur_canvas_f32(*args), "hdr_deblur")
+
     def sr_batch(self, imgs_u8: np.ndarray, family_name: str = "sr-x2") -> tuple[np.ndarray, dict]:
         """Super-resolution batch [N,H,W,3] u8 -> [N,H*scale,W*scale,3] u8
         (no conditioning, no tiling)."""
@@ -349,3 +366,18 @@ class RestorationEngine:
             f"sr_tiled/{family_name}/{size}t{tile}",
             lambda: program(model, canvas), family_name, tile=tile, overlap=overlap,
         )
+
+    def warmup(self, family_name="restore-unet", sizes=None, batches=None) -> float:
+        """Run the restore programs once per serving bucket (serve/warmup.py)."""
+        from .warmup import warmup_restore
+
+        return warmup_restore(self, family_name, sizes, batches)
+
+    def warmup_serving(self, families=("restore-unet",), sizes=None, batches=None,
+                       fusion_k=(3,), sr_tiled_canvas=None) -> dict:
+        """Run every serving surface ``families`` names once, so no endpoint
+        pays the first launch's kernel builds and cuDNN plan searches in a
+        request (serve/warmup.py)."""
+        from .warmup import warmup_serving
+
+        return warmup_serving(self, families, sizes, batches, fusion_k, sr_tiled_canvas)

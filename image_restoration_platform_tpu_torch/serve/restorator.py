@@ -3,16 +3,16 @@
 Counterpart of image_restoration_platform_tpu/serve/restorator.py
 (``RestoratorService``): ``restore`` for the standard, diffusion and
 super-resolution families (direct SRNet up to the 512 bucket, tiled
-overlap-blend above it), ``restore_fusion`` and the ``restore_batch``
-fan-out, with the reference's result contract (per-stage timings,
-degradation analysis, enhanced prompt, metadata with
+overlap-blend above it), ``restore_fusion``, the ``restore_batch`` fan-out
+and ``get_health_status``, with the reference's result contract (per-stage
+timings, degradation analysis, enhanced prompt, metadata with
 ``classificationIssues``) and its structured failure with error taxonomy and
 failed stage.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than served
-another way: 16-bit PNG uploads where the native codec exists and the HDR
-deblur pre-pass is on (``SERVE_HDR_DEBLUR``). Without the native codec such
-an upload is served on the 8-bit path, as in the reference.
+A 16-bit PNG upload takes the HDR deblur pre-pass (``SERVE_HDR_DEBLUR``,
+``_hdr_prepass``) where the native codec exists; without it such an upload
+is served on the 8-bit path, as in the reference. ``estimatedCostUsd`` is
+not reported: the reference's rate is a TPU price.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .. import imageio
-from ..classify.classifier import DEGRADATION_ORDER
+from ..classify.classifier import DEGRADATION_ORDER, ClassifierService
 from ..config import ServingConfig
 from ..models import get_family
 from ..obs.metrics import get_counters
@@ -65,6 +65,7 @@ class RestoratorService:
     def __init__(
         self,
         engine: RestorationEngine | None = None,
+        classifier: ClassifierService | None = None,
         prompt_enhancer: PromptEnhancerService | None = None,
         serving_config: ServingConfig | None = None,
         batcher=None,
@@ -75,6 +76,7 @@ class RestoratorService:
         self.engine = engine or RestorationEngine(device=device, serving_config=serving_config)
         if self.engine.device.type != device.type:
             raise ValueError(f"restorator device {device} differs from the engine's {self.engine.device}")
+        self.classifier = classifier or ClassifierService(device=device)
         self.prompt_enhancer = prompt_enhancer or PromptEnhancerService()
         self.config = serving_config or ServingConfig()
         self.batcher = batcher  # optional continuous micro-batcher (serve/batcher.py)
@@ -118,6 +120,28 @@ class RestoratorService:
         except ValueError:
             return False
 
+    def _hdr_prepass(self, image) -> tuple[np.ndarray | None, str | None]:
+        """16-bit PNG -> float disk-enabled Wiener deconvolution -> u8 pixels.
+        The image is edge-padded (never resized) into the smallest serving
+        bucket that holds it; an oversized image, or one under 128 px (the
+        deblur analysis size), skips the pre-pass. Returns (None, None) to
+        fall back to the standard 8-bit decode."""
+        pixels16 = imageio.decode_image_u16(bytes(image))
+        h, w = pixels16.shape[:2]
+        buckets = [b for b in self.config.size_buckets if b >= max(h, w)]
+        if not buckets or min(h, w) < 128:
+            return None, None
+        bucket = min(buckets)
+        x = pixels16.astype(np.float32) / 65535.0
+        canvas = np.pad(x, ((0, bucket - h), (0, bucket - w), (0, 0)), mode="edge")
+        out, _meta = self.engine.hdr_deblur_batch(
+            canvas[None],
+            np.asarray([[h, w]], np.int32),
+            np.zeros((1,), np.float32),  # PNG is lossless: compression 0
+        )
+        restored = np.clip(np.round(out[0, :h, :w] * 255.0), 0, 255).astype(np.uint8)
+        return restored, "png"
+
     def _decode(self, image, options: dict) -> tuple[np.ndarray, str | None]:
         if isinstance(image, (bytes, bytearray)):
             decoded = imageio.decode_image(bytes(image))
@@ -142,11 +166,6 @@ class RestoratorService:
         options = options or {}
         user_context = user_context or {}
         family = options.get("model", "restore-unet")
-        if self._wants_hdr(image):
-            raise NotImplementedError(
-                "16-bit PNG uploads take the HDR deblur pre-pass, which is not ported to "
-                "PyTorch yet (SERVE_HDR_DEBLUR=0 serves them on the 8-bit path)"
-            )
         start = time.perf_counter()
         timings: dict = {}
 
@@ -158,7 +177,11 @@ class RestoratorService:
             },
         ) as span:
             try:
-                pixels, fmt = self._decode(image, options)
+                # 16-bit PNGs take the float deblur pre-pass (disk channel on)
+                # first; it returns (None, None) where it does not apply
+                pixels, fmt = self._hdr_prepass(image) if self._wants_hdr(image) else (None, None)
+                if pixels is None:
+                    pixels, fmt = self._decode(image, options)
                 if family.startswith("sr-"):
                     return self._restore_sr(pixels, fmt, family, timings, start, span)
 
@@ -493,3 +516,20 @@ class RestoratorService:
 
             with ThreadPoolExecutor(max_workers=self.config.batch_concurrency) as pool:
                 return list(pool.map(run, enumerate(images)))
+
+    def get_health_status(self) -> dict:
+        try:
+            probe = np.full((32, 32, 3), 128, dtype=np.uint8)
+            self.classifier.analyze_array(probe, "png")
+            classifier_healthy = True
+        except Exception:
+            classifier_healthy = False
+        return {
+            "healthy": classifier_healthy,
+            "services": {
+                "classifier": classifier_healthy,
+                "promptEnhancer": True,
+                "engine": True,
+            },
+            "timestamp": time.time(),
+        }

@@ -36,10 +36,30 @@ print(len(names), leaked)
 print(" ".join(n[len("{PORT}."):] for n in names))
 """
 
-# the modules of the super-resolution, diffusion and fusion slice
+# the modules of the super-resolution, diffusion and fusion slice, and of the
+# HTTP service with its host services, the device classifier and resize
 NEW_MODULES = {
     "models.srnet", "models.diffusion", "ops.tile", "ops.cuda.blend", "serve.programs.sr", "serve.programs.fusion",
+    "api", "api.app", "api.auth", "api.context", "api.middleware", "api.routes", "api.submit", "classify.classifier",
+    "config", "obs.metrics", "obs.tracing", "ops.resize", "ops.stats", "problem", "serve.blobs", "serve.credits",
+    "serve.durable", "serve.idempotency", "serve.jobs", "serve.moderation", "serve.queue", "serve.ratelimit",
+    "serve.redis_store", "serve.store", "serve.vision", "serve.warmup", "utils.measure_guard", "utils.retry",
 }
+
+# the service graph and the submission path, in an interpreter without aiohttp
+_NO_AIOHTTP_PROBE = f"""
+import sys
+sys.modules["aiohttp"] = None
+import {PORT}.api
+from {PORT}.api import AppContext
+from {PORT}.api.context import AppContext
+from {PORT}.api.submit import submit_job, preprocess, validate_upload
+try:
+    from {PORT}.api import create_app
+except ImportError:
+    print("aiohttp refused")
+print(sorted(m for m, v in sys.modules.items() if m.startswith("aiohttp") and v is not None))
+"""
 
 
 def test_port_imports_nothing_of_jax():
@@ -50,9 +70,18 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0, out.stderr
     first, modules = out.stdout.strip().splitlines()
     count, leaked = first.split(" ", 1)
-    assert int(count) >= 38  # every module of the port was imported
+    assert int(count) >= 61  # every module of the port was imported
     assert NEW_MODULES <= set(modules.split())
     assert leaked == "[]"
+
+
+def test_service_graph_imports_without_aiohttp():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_AIOHTTP_PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["aiohttp refused", "[]"]
 
 
 def _imported_roots(path: str) -> set[str]:
@@ -109,6 +138,27 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError):
         MicroBatcher(engine)
     RestoratorService(engine=engine, device="cpu")
+
+
+def test_app_context_and_main_need_cuda_unless_asked_for_cpu(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from image_restoration_platform_tpu_torch.api import AppContext, app
+
+    monkeypatch.setenv("ALLOW_DEGRADED", "1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AppContext()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        app.main()
+    served = []
+    monkeypatch.setattr(app.web, "run_app", lambda application, **kw: served.append(application["ctx"]))
+    app.main(device="cpu")
+    ctx = served[0]
+    try:
+        assert ctx.device.type == ctx.engine.device.type == ctx.classifier.device.type == "cpu"
+        assert ctx.restorator.engine is ctx.engine and ctx.batcher.engine is ctx.engine
+    finally:
+        ctx.shutdown()
 
 
 def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):

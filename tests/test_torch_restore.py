@@ -159,13 +159,20 @@ def _png16(rgb16: np.ndarray) -> bytes:
 
 
 def test_restorator_refuses_what_is_not_ported(service, monkeypatch):
-    """Only the HDR pre-pass is left: a 16-bit PNG is refused where the
-    native codec exists (the reference would take the pre-pass there)."""
+    """Nothing is refused any more: where the native codec exists a 16-bit
+    PNG takes the HDR pre-pass, as in the reference; at 32 x 32 (under the
+    pre-pass's 128 px analysis size) that is its fallback to the 8-bit path,
+    the same answer as for the image's 8-bit pixels. The pre-pass itself, at
+    128 px, is held against the reference in tests/test_torch_hdr.py."""
     png = _png16(np.full((32, 32, 3), 30000, np.uint16))
     assert jimageio.decode_bit_depth(png[:32]) == 16
     monkeypatch.setattr(imageio, "native_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="HDR"):
-        service.restore(png, options={"model": "restore-unet-small"})
+    assert service._wants_hdr(png) and service._hdr_prepass(png) == (None, None)
+    result = service.restore(png, options={"model": "restore-unet-small"})
+    assert result["success"] is True, result.get("error")
+    pixels = imageio.decode_image(png).pixels
+    same = service.restore(pixels, options={"model": "restore-unet-small", "format": "png"})
+    assert same["restoredImage"] == result["restoredImage"]
 
 
 @pytest.mark.parametrize("case", ["png16-pillow-codec", "sr-x2", "diffusion-restore"])
