@@ -8,10 +8,14 @@ the port's modules as:
 - conv kernels HWIO ``[kh, kw, ci, co]`` -> OIHW ``[co, ci, kh, kw]``;
 - dense kernels ``[in, out]`` stay ``[in, out]`` (applied as ``x @ w``);
 - '/' in a path -> '.' in the state-dict key.
+
+``params_to_jax`` and ``save_params`` go the other way, so a model trained by
+the port is written in the layout the JAX package's ``load_params`` reads.
 """
 
 from __future__ import annotations
 
+import io
 import os
 
 import numpy as np
@@ -42,6 +46,36 @@ def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
             arr = arr.transpose(3, 2, 0, 1)
         state[key.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def params_to_jax(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Inverse of ``params_from_jax``: a state dict -> flat '/'-keyed
+    arrays in the JAX layouts (OIHW -> HWIO), f32 on the host."""
+    flat = {}
+    for key, value in state.items():
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        flat[key.replace(".", "/")] = np.ascontiguousarray(arr)
+    return flat
+
+
+def save_params(state: dict[str, torch.Tensor], path: str, half_precision: bool = True) -> None:
+    """Write ``state`` as the JAX package's serving npz: the same keys, f32
+    arrays of two or more dimensions in fp16 (``half_precision``), the rest
+    as they are, compressed. The file is written beside ``path`` and swapped
+    in with ``os.replace``: interim exports overwrite the weights a warm
+    start reads, and a kill during the write must leave the old file whole."""
+    flat = params_to_jax(state)
+    if half_precision:
+        flat = {k: v.astype(np.float16) if v.dtype == np.float32 and v.ndim >= 2 else v for k, v in flat.items()}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **flat)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getvalue())
+    os.replace(tmp, path)
 
 
 def load_npz(path: str) -> dict[str, np.ndarray]:

@@ -1,0 +1,369 @@
+"""Training: the train step, AdamW with the reference's schedule, checkpoints.
+
+Counterpart of image_restoration_platform_tpu/train/trainer.py on one card:
+
+- loss: Charbonnier (robust L1) + gradient difference for edge fidelity, with
+  the identity weighting and the compression-only anchor of the restore
+  branch; SR, diffusion (eps / x0) and sampler-aware branches as there;
+- optimizer: ``torch.optim.AdamW`` driven by optax's
+  ``warmup_cosine_decay_schedule`` (step k takes the schedule's value at k,
+  so step 0 takes lr 0), after optax's ``clip_by_global_norm(1.0)``; weight
+  decay applies to every parameter, and a parameter that got no gradient
+  gets a zero one, as in optax;
+- parameters and Adam moments stay f32; the layers cast weights to the
+  activation type at each call (models/nn.py), so the forward runs in
+  ``compute_dtype`` without ``cast_for_compute``, which is serving's;
+- ``remat=True`` is ``torch.utils.checkpoint`` around the restore forward
+  (the forward runs again in the backward: two attention launches a step);
+- randomness: the model's init from ``seed``, the data from a generator
+  seeded ``seed + 1`` that persists across ``run()`` calls, the diffusion
+  noise of step k from a generator seeded from (``seed + 77``, k) or
+  (``seed + 177``, k) for the sampler, like the reference's ``fold_in``;
+- checkpoints: ``torch.save`` of params, optimizer state, step and the data
+  stream in place of orbax. Sharding (the reference's mesh argument) waits
+  for the port of ``parallel/``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import time
+from dataclasses import dataclass
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..models import diffusion as diff_mod
+from ..models import get_family
+from ..models import weights as weights_mod
+from ..models.diffusion import DiffusionConfig
+from ..models.srnet import SRNet, SRNetConfig
+from ..serve.engine import resolve_device
+from ..utils.logging import get_logger
+from .data import DataConfig, synthetic_batch
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The reference's TrainConfig, field for field, with ``compute_dtype`` a
+    ``torch.dtype`` (each field's history is in its comments there)."""
+
+    family: str = "restore-unet"
+    batch_size: int = 32
+    image_size: int = 128
+    learning_rate: float = 2e-4
+    weight_decay: float = 1e-4
+    warmup_steps: int = 200
+    total_steps: int = 10_000
+    charbonnier_eps: float = 1e-3
+    grad_loss_weight: float = 0.1
+    compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = False
+    seed: int = 0
+    # weight multiplier for near-identity examples in the restoration loss
+    identity_weight: float = 3.0
+    # > 0 (diffusion family only): train through the unrolled K-step DDIM
+    # sampler against the clean target (sampler-aware fine-tuning)
+    diffusion_sampler_steps: int = 0
+    # the data distribution (DataConfig.photo / deconv / grain / smooth /
+    # smooth_share / clean_fraction / compression_solo / lowlight_solo)
+    data_photo: bool = False
+    # fraction of batches drawn from the rich photo=False distribution
+    data_mix_rich: float = 0.0
+    data_deconv: bool = False
+    # fraction of batches drawn with deconv=False (the mild photo distribution)
+    data_mix_mild: float = 0.0
+    data_grain: bool = False
+    data_smooth: bool = False
+    data_smooth_share: float = 0.10
+    data_clean_fraction: float = 0.15
+    data_compression_solo: float = 0.0
+    data_lowlight_solo: float = 0.0
+    # identity anchor on compression-only rows: lambda * charbonnier(pred,
+    # INPUT), which wins only where the clean-target pull cancels out
+    anchor_comp: float = 0.0
+
+
+def charbonnier(pred, target, eps):
+    return torch.mean(torch.sqrt((pred - target) ** 2 + eps * eps))
+
+
+def identity_weighted_charbonnier(pred, target, inputs, eps, identity_weight=3.0):
+    """Charbonnier with per-example weights that emphasise the near-identity
+    regime (inputs already close to the target), so the model learns 'do no
+    harm' on clean inputs."""
+    per_ex = torch.mean(torch.sqrt((pred - target) ** 2 + eps * eps), dim=(1, 2, 3))  # [N]
+    input_mse = torch.mean((inputs - target) ** 2, dim=(1, 2, 3))  # [N]
+    w = 1.0 + identity_weight * torch.exp(-input_mse / 1e-3)
+    return torch.sum(per_ex * w) / torch.sum(w)
+
+
+def gradient_loss(pred, target):
+    """L1 on spatial finite differences: keeps restored edges crisp."""
+    dy_p, dy_t = pred[:, 1:] - pred[:, :-1], target[:, 1:] - target[:, :-1]
+    dx_p, dx_t = pred[:, :, 1:] - pred[:, :, :-1], target[:, :, 1:] - target[:, :, :-1]
+    return torch.mean((dy_p - dy_t).abs()) + torch.mean((dx_p - dx_t).abs())
+
+
+def lr_schedule(cfg: TrainConfig):
+    """optax.warmup_cosine_decay_schedule(0, lr, warmup, total_steps,
+    0.05 * lr) as a function of the step count."""
+    warmup = min(cfg.warmup_steps, max(1, cfg.total_steps // 10))
+    peak = cfg.learning_rate
+    decay_steps = cfg.total_steps - warmup
+    if decay_steps <= 0:
+        raise ValueError(f"the cosine decay needs total_steps > the {warmup} warm-up steps, got {cfg.total_steps}")
+    alpha = 0.0 if peak == 0.0 else (0.05 * peak) / peak
+
+    def schedule(step: int) -> float:
+        if step < warmup:
+            return peak * step / warmup
+        t = min(step - warmup, decay_steps)
+        return peak * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * t / decay_steps)) + alpha)
+
+    return schedule
+
+
+def make_optimizer(cfg: TrainConfig, params) -> torch.optim.AdamW:
+    """optax.adamw's update (b1 0.9, b2 0.999, eps 1e-8, decoupled weight
+    decay on every parameter); the train step sets its lr each step."""
+    return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor]) -> torch.Tensor:
+    """optax.clip_by_global_norm(1.0) in place: g unchanged while the global
+    norm is under 1, else g / norm. Returns the norm."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_div_(grads, torch.clamp(norm, min=1.0))
+    return norm
+
+
+def _step_generator(gen: torch.Generator, base: int, step: int) -> torch.Generator:
+    """``gen`` reseeded from (base, step): each step's noise is a function of
+    the step, as with ``fold_in(PRNGKey(base), step)``."""
+    return gen.manual_seed(base * 1_000_003 + step)
+
+
+@dataclass
+class TrainState:
+    """The model (f32 parameters), its optimizer, and the steps taken."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.AdamW
+    step: int = 0
+
+
+class TrainStep:
+    """One optimizer step of ``cfg.family`` on ``device``: ``loss`` is the
+    reference's ``loss_fn``; calling the object takes a step in place.
+
+    ``draws`` injects the diffusion branches' random draws ({"t_frac",
+    "eps"}, or {"noise"} for the sampler); by default they come from the
+    step's generator."""
+
+    def __init__(self, cfg: TrainConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        family = get_family(cfg.family)
+        self.family = family
+        self.model_cfg = family.config
+        self.is_sr = isinstance(self.model_cfg, SRNetConfig)
+        self.is_diffusion = isinstance(self.model_cfg, DiffusionConfig)
+        self.schedule = lr_schedule(cfg)
+        self._noise_gen = torch.Generator(device=device)
+
+    def build_model(self) -> torch.nn.Module:
+        """The family's module with random weights from ``cfg.seed``. SR
+        trains with the residual limiter off (``limit_pool=0``): its clamp
+        zeroes gradients outside the envelope. Same parameters as serving's."""
+        gen = torch.Generator().manual_seed(self.cfg.seed)
+        if self.is_sr:
+            model = SRNet(dataclasses.replace(self.model_cfg, limit_pool=0))
+        else:
+            model = self.family.build()
+        return model.init_(gen).to(self.device)
+
+    def init_state(self) -> TrainState:
+        model = self.build_model()
+        return TrainState(model, make_optimizer(self.cfg, model.parameters()), 0)
+
+    def loss(self, model, degraded, clean, cond, anchor, step: int = 0, draws: dict | None = None):
+        cfg, dt = self.cfg, self.cfg.compute_dtype
+        if self.is_diffusion and cfg.diffusion_sampler_steps > 0:
+            # sampler-aware: run the K-step DDIM restore with autograd on and
+            # regress the final image on clean
+            scfg = dataclasses.replace(self.model_cfg, sample_steps=cfg.diffusion_sampler_steps)
+            noise = draws["noise"] if draws else _step_generator(self._noise_gen, cfg.seed + 177, step)
+            pred = diff_mod.restore(model, degraded.to(dt), cond.to(dt), noise, scfg).float()
+            return charbonnier(pred, clean, cfg.charbonnier_eps) + cfg.grad_loss_weight * gradient_loss(pred, clean)
+        if self.is_diffusion:
+            # denoising loss: noise the clean image, condition on the
+            # degraded one (3 extra channels) and its degradation profile
+            n = clean.shape[0]
+            x0 = clean * 2.0 - 1.0
+            x_cond = degraded * 2.0 - 1.0
+            if draws:
+                t_frac, eps = draws["t_frac"], draws["eps"]
+            else:
+                gen = _step_generator(self._noise_gen, cfg.seed + 77, step)
+                t_frac = torch.rand((n,), generator=gen, device=clean.device)
+                eps = torch.randn(x0.shape, generator=gen, device=clean.device)
+            xt = diff_mod.add_noise(x0, eps, t_frac)
+            out = model(torch.cat([xt, x_cond], dim=-1).to(dt), cond.to(dt), t=t_frac * self.model_cfg.timesteps)
+            if self.model_cfg.parameterization == "x0":
+                return torch.mean((out.float() - x0) ** 2)
+            return torch.mean((out.float() - xt - eps) ** 2)
+        if self.is_sr:
+            # low-res = box-downsampled degraded image, target = clean
+            s = self.model_cfg.scale
+            n, h, w, c = degraded.shape
+            lr = degraded.reshape(n, h // s, s, w // s, s, c).mean(dim=(2, 4))
+            pred = model(lr.to(dt)).float()
+            return charbonnier(pred, clean, cfg.charbonnier_eps) + cfg.grad_loss_weight * gradient_loss(pred, clean)
+        x, c = degraded.to(dt), cond.to(dt)
+        pred = (checkpoint(model, x, c, use_reentrant=False) if cfg.remat else model(x, c)).float()
+        loss = identity_weighted_charbonnier(pred, clean, degraded, cfg.charbonnier_eps, cfg.identity_weight)
+        if cfg.anchor_comp > 0.0:
+            # identity anchor on compression-only rows: a pull toward the INPUT
+            per_ex = torch.mean(torch.sqrt((pred - degraded) ** 2 + cfg.charbonnier_eps**2), dim=(1, 2, 3))
+            loss = loss + cfg.anchor_comp * torch.sum(anchor * per_ex) / torch.clamp(torch.sum(anchor), min=1.0)
+        return loss + cfg.grad_loss_weight * gradient_loss(pred, clean)
+
+    def __call__(self, state: TrainState, degraded, clean, cond, anchor, draws: dict | None = None) -> torch.Tensor:
+        """One step: loss, gradients, global-norm clip, AdamW at the
+        schedule's lr for this step. Returns the loss before the update."""
+        params = [p for group in state.optimizer.param_groups for p in group["params"]]
+        for group in state.optimizer.param_groups:
+            group["lr"] = self.schedule(state.step)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(state.model, degraded, clean, cond, anchor, state.step, draws)
+        loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        clip_by_global_norm_([p.grad for p in params])
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+
+def make_train_step(cfg: TrainConfig, device: str | torch.device = "cuda"):
+    """Returns (train_step, init_state), as the reference does; train_step
+    updates a TrainState in place and returns the loss."""
+    step = TrainStep(cfg, resolve_device(device))
+    return step, step.init_state
+
+
+class Trainer:
+    def __init__(
+        self,
+        cfg: TrainConfig = TrainConfig(),
+        device: str | torch.device = "cuda",
+        checkpoint_dir: str | None = None,
+        warm_start: bool = False,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.logger = get_logger("trainer")
+        self.step_fn, self._init = make_train_step(cfg, self.device)
+        self.state = self._init()
+        if warm_start:
+            # resume from the family's exported serving weights
+            path = weights_mod.weights_path(cfg.family)
+            if os.path.exists(path):
+                self.state.model.load_state_dict(weights_mod.load_state_dict(path), strict=True)
+                self.logger.info("warm-started from weights", {"path": path})
+        self.checkpoint_dir = checkpoint_dir
+        photo = dict(
+            photo=cfg.data_photo, grain=cfg.data_grain, smooth=cfg.data_smooth, smooth_share=cfg.data_smooth_share,
+            clean_fraction=cfg.data_clean_fraction, compression_solo=cfg.data_compression_solo,
+            lowlight_solo=cfg.data_lowlight_solo,
+        )
+        self._data_cfg = DataConfig(size=cfg.image_size, deconv=cfg.data_deconv, **photo)
+        self._data_cfg_rich = DataConfig(size=cfg.image_size, photo=False, clean_fraction=cfg.data_clean_fraction)
+        self._data_cfg_mild = DataConfig(size=cfg.image_size, deconv=False, **photo)
+        self._data_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self._mix_acc = 0.0
+        self._mix_acc_mild = 0.0
+
+    def _next_data_config(self) -> DataConfig:
+        """The distribution of the next batch: deterministic, fraction-exact
+        interleaves of the rich and the mild distributions (error-diffusion
+        accumulators that advance every step; on a collision rich wins and
+        the mild credit carries to the next step)."""
+        cfg, cfg_step = self.cfg, self._data_cfg
+        if cfg.data_photo and cfg.data_mix_rich > 0.0:
+            self._mix_acc += cfg.data_mix_rich
+            if self._mix_acc >= 1.0:
+                self._mix_acc -= 1.0
+                cfg_step = self._data_cfg_rich
+        if cfg.data_photo and cfg.data_deconv and cfg.data_mix_mild > 0.0:
+            self._mix_acc_mild += cfg.data_mix_mild
+            if self._mix_acc_mild >= 1.0 and cfg_step is self._data_cfg:
+                self._mix_acc_mild -= 1.0
+                cfg_step = self._data_cfg_mild
+        return cfg_step
+
+    def next_batch(self):
+        """The next step's (degraded, clean, cond, comp_only) from the data stream."""
+        return synthetic_batch(self._data_gen, self.cfg.batch_size, self._next_data_config(), with_masks=True)
+
+    def run(self, steps: int, log_every: int = 50) -> list[float]:
+        """``steps`` train steps on fresh synthetic batches; returns the
+        losses of the logged steps. The data stream persists across calls,
+        so a long schedule can be chunked without repeating batches."""
+        losses = []
+        t0 = time.time()
+        for i in range(steps):
+            loss = self.step_fn(self.state, *self.next_batch())
+            if i % log_every == 0 or i == steps - 1:
+                loss_val = float(loss)
+                losses.append(loss_val)
+                self.logger.info(
+                    "train step",
+                    {
+                        "step": self.state.step,
+                        "loss": round(loss_val, 5),
+                        "imgs_per_sec": round(self.cfg.batch_size * (i + 1) / (time.time() - t0), 1),
+                    },
+                )
+        return losses
+
+    # ------------------------------------------------------- checkpointing
+
+    def save_checkpoint(self, path: str | None = None) -> str:
+        """``{path}/step_<k>.pt``: params, optimizer state, step, and the
+        data stream (generator state and interleave accumulators)."""
+        path = path or self.checkpoint_dir
+        if path is None:
+            raise ValueError("no checkpoint directory configured")
+        os.makedirs(path, exist_ok=True)
+        out = os.path.join(path, f"step_{self.state.step}.pt")
+        torch.save(
+            {
+                "params": self.state.model.state_dict(),
+                "opt_state": self.state.optimizer.state_dict(),
+                "step": self.state.step,
+                "data": {"rng": self._data_gen.get_state(), "mix_acc": self._mix_acc,
+                         "mix_acc_mild": self._mix_acc_mild},
+            },
+            out,
+        )
+        return out
+
+    def load_params(self, path: str) -> dict[str, torch.Tensor]:
+        return torch.load(path, map_location="cpu")["params"]
+
+    def resume_checkpoint(self, path: str) -> None:
+        """Restore params, Adam moments, step and the data stream, so
+        continued training keeps its Adam state, schedule position and
+        batches."""
+        saved = torch.load(path, map_location="cpu")
+        self.state.model.load_state_dict(saved["params"], strict=True)
+        self.state.optimizer.load_state_dict(saved["opt_state"])
+        self.state.step = int(saved["step"])
+        self._data_gen.set_state(saved["data"]["rng"])
+        self._mix_acc = float(saved["data"]["mix_acc"])
+        self._mix_acc_mild = float(saved["data"]["mix_acc_mild"])

@@ -165,6 +165,10 @@ def test_launch_plan_of_the_paths_shapes(shape, dtype):
         ((2, 2, 1024, 32), "bfloat16"): ("mma_sync", 64, 64, 1, 128, 4),
         ((1, 4, 192, 64), "bfloat16"): ("mma_sync", 64, 64, 1, 128, 4),
         ((1, 4, 1024, 64), "float32"): ("simt_f32", 32, 64, 2, 128, 4),
+        # training: 128 heads of 256 keys (two 192-query blocks a head, two
+        # 128-key stages), and of 1024 keys (all heads on 192-query blocks)
+        ((32, 4, 256, 64), "bfloat16"): ("wgmma_q192", 192, 128, 2, 512, 4),
+        ((32, 4, 1024, 64), "bfloat16"): ("wgmma_q192", 192, 128, 4, 512, 128),
     }[(shape, dtype)]
     assert (plan.variant, plan.block_q, plan.block_k, plan.stages, plan.threads, plan.full_heads) == expected
     assert plan.variant in A.VARIANTS and 0 <= plan.shared_bytes <= 232_448
