@@ -42,7 +42,8 @@ failure (exit code 1):
      attention launches per 256 batch, none at 512) and ``restore_fusion``
      of three 512 captures (one launch);
 4. throughput: steady-state images/s and p50 request latency at 256 b1 and
-   512 b8, end to end through RestoratorService, and the engine's step time;
+   512 b8, end to end through RestoratorService, and the engine's step time
+   with the stages' host syncs and fire counts a step;
    warm wall time of one 2048 -> 4096 sr-x2 request and of ``engine.sr_tiled``
    alone, with the profiler's split of one such step;
 5. service graph: the HTTP service's ``AppContext`` on the card (batcher,
@@ -68,7 +69,22 @@ failure (exit code 1):
    bf16 against bf16, and bf16's loss gap to f32 against the JAX
    trainer's); two steps each of sr-x2, diffusion-restore (x0 and eps) and
    the sampler-aware loss; the npz export round trip and a checkpoint
-   resume; ``main()`` with ``TRAIN_STEPS=2``.
+   resume; ``main()`` with ``TRAIN_STEPS=2``;
+7. mesh: the mesh surfaces on slot meshes that repeat the card
+   (``make_mesh([cuda:0] * 4, ...)``; the slots share one stream, so their
+   times show the cost of a mesh path, not scaling), bf16, shipped weights,
+   each against the unsharded port with the reference's bars and its
+   kernels' launches counted from 0: restore-unet 512 b8 through
+   RestoratorService on data=4 and on data=2 x tensor=2 (4 and 2 attention
+   launches a batch), image by image, the stages' fire flags equal to the
+   unsharded engine's, data=4 equal to the unsharded engine at batch 2, and
+   one profiled step each; sr-x2 2048 through ``engine.sr_tiled`` on data=4
+   (equal, one blend launch); ``engine.sr_spatial`` on spatial=4 at 2048 and
+   on a 1501-row canvas (padded rows); ``srnet_pipeline_apply`` on pipe=4 and
+   ``unet_pipeline_apply`` on data=2 x pipe=2 at 512 with 4 microbatches; two
+   ``Trainer`` steps on data=2 against two unsharded steps (f32); and
+   ``maybe_initialize_distributed`` with one rank on NCCL and one
+   ``all_reduce``.
 
 Phase 2 also holds the kernel at the training shapes ([32, 4, 256, 64] and
 [32, 4, 1024, 64] bf16) and checks the gradients through ``FlashAttention``
@@ -76,8 +92,9 @@ Phase 2 also holds the kernel at the training shapes ([32, 4, 256, 64] and
 plain forward at [32, 4, 256, 64].
 
 ``--report PATH`` also writes the full report as JSON to PATH;
-``--kernels-only`` stops after phase 2 (a quick check of a changed kernel:
-it prints no result lines and exits 0 or 1). The last
+``--kernels-only`` stops after phase 2 (a quick check of a changed kernel)
+and ``--mesh-only`` runs phase 7 alone after the builds; both print no
+result lines and exit 0 or 1. The last
 lines of standard output are the card line, the kernels JSON line, and
 {"ok": true, "device": {...}}.
 """
@@ -114,6 +131,10 @@ KERNEL_SHAPES = [  # (shape [N,H,T,D], dtype, where the path uses it)
     ((1, 4, 1024, 64), "float32", "restore-unet 256 b1, f32 engine"),
     ((32, 4, 256, 64), "bfloat16", "training restore-unet 128 b32 (the r5-anchor recipe)"),
     ((32, 4, 1024, 64), "bfloat16", "training diffusion-restore 128 b32"),
+    ((2, 4, 4096, 64), "bfloat16", "mesh restore-unet 512 b8 on data=4: one slot's shard"),
+    ((4, 4, 4096, 64), "bfloat16", "mesh restore-unet 512 b8 on data=2 x tensor=2: one slot's shard"),
+    ((1, 4, 4096, 64), "bfloat16", "unet_pipeline_apply 512 b8, data=2 x pipe=2: one microbatch of a data row"),
+    ((4, 4, 256, 64), "float32", "mesh train step 128 b8 on data=2 (the f32 check): one slot's shard"),
 ]
 # the gradient check: dq, dk, dv through FlashAttention (kernel forward, plain
 # backward) against autograd through the plain forward, at the training shape
@@ -561,6 +582,7 @@ def phase_slice(torch, np, report, card):
         print(json.dumps({"slice": {"requests": len(results), "batches": batches, "forwards_le_512": forwards,
                                     "attention_launches": launches,
                                     "host_syncs": {k: v for k, v in delta.items() if k.startswith("host_sync")},
+                                    "stage_fires": {k: v for k, v in delta.items() if k.startswith("stage_fires")},
                                     "egress": "yuv420" if imageio.native_available() else "rgb"}}),
               flush=True)
 
@@ -964,13 +986,14 @@ def _sha256(path: str) -> str:
         return hashlib.sha256(f.read()).hexdigest()
 
 
-def _kernel_split(torch, prof) -> tuple[float, int, dict, list]:
+def _kernel_split(torch, prof, skip: tuple = ("Optimizer.",)) -> tuple[float, int, dict, list]:
     """(busy ms, kernel launches, ms by kind, the top kernels) of a profiled
-    window; the optimizer's step annotation is not a kernel."""
+    window; annotation ranges named with a ``skip`` prefix (the optimizer's
+    step by default) are not kernels."""
     self_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))  # noqa: E731
     cuda = torch.autograd.DeviceType.CUDA
     kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == cuda and self_us(e) > 0 and not e.key.startswith("Optimizer.")),
+                      if e.device_type == cuda and self_us(e) > 0 and not e.key.startswith(skip)),
                      key=self_us, reverse=True)
 
     def kind(name: str) -> str:
@@ -1227,6 +1250,346 @@ def phase_train(torch, np, report, card):
     return {"train": launches, "train_branches": branch_launches}
 
 
+# the mesh phase: slot meshes that repeat the one card, [cuda:0] x 4. Their
+# slots share the card's stream and run one after another: the times show that
+# a mesh path costs about what the unsharded one does, not any scaling.
+MESH_SLOTS = 4
+MESH_RESTORE = (("data4", dict(data=4), 4), ("data2_tensor2", dict(data=2, tensor=2), 2))
+# the reference's bars (tests/test_mesh_serving.py, tests/test_pipeline.py):
+# restore_batch mean |delta| < 1 level with scores within 1e-4 (and the
+# stages' per-image fire flags equal); in bf16 the unsharded engine itself
+# moves an image by up to tens of levels between batch sizes (cuDNN picks
+# other convolution algorithms), so a data slot is also held to the
+# unsharded engine at its shard's batch size, bit for bit where the tensor
+# axis is 1; sr_tiled
+# exactly; sr_spatial max |delta| <= 1 level with the shard-boundary rows no
+# worse than max(0.5, 1.5 x the mean); the bf16 SRNet pipeline within 0.05 on
+# [0, 1]; the UNet pipeline (bf16, as served) at the restore bar
+MESH_MEAN_LEVELS, MESH_SCORES_ATOL, SPATIAL_MAX_LEVELS, PIPE_BF16_ATOL = 1.0, 1e-4, 1, 0.05
+SPATIAL_ROWS = 1501  # no multiple of 4: three rows of padding
+# two Trainer steps on data=2 against two unsharded steps, in f32 (TF32 off):
+# the losses to 1e-4 relative, each step's gradient to cosine 0.9999 and its
+# norm to 1e-4; the parameters as the resume check holds them
+MESH_TRAIN_BATCH, MESH_LOSS_RTOL, MESH_GRAD_COSINE, MESH_GRAD_NORM_RTOL = 8, 1e-4, 0.9999, 1e-4
+
+
+def _levels(np, a, b) -> dict:
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return {"mean_levels": float(d.mean()), "max_levels": int(d.max())}
+
+
+def _levels_per_image(np, a, b) -> dict:
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32)).reshape(len(a), -1)
+    return {"mean_levels": [float(x) for x in d.mean(1)], "max_levels": [int(x) for x in d.max(1)]}
+
+
+def _mesh_restore_batch(np, imageio, motion_psf):
+    """Phase 7's 512 b8: photos, two blocky JPEGs (2, 7) and two motion
+    blurs (1, 3), so each stage fires on some shards' images and not on
+    others (images 4-5 fire nothing). The blurs deblur with room to spare: the
+    Wiener output's total variation is 2.5x the input's, the bar 3x (the
+    port on the CPU). (canvas [8,512,512,3] u8, is_jpeg [8] f32, the
+    uploads)."""
+    u8 = lambda x: np.clip(np.round(x * 255.0), 0, 255).astype(np.uint8)  # noqa: E731
+    blurs = {1: (15.0, 0.0), 3: (9.0, 0.9)}  # image: (length, angle)
+    canvas, is_jpeg, uploads = [], [], []
+    for i in range(8):
+        img = _photo(np, 40 + i, 512)
+        if i in blurs:
+            img = _motion_blur(np, img, motion_psf(*blurs[i]))
+        if i in (2, 7):
+            data = imageio.encode_jpeg(u8(img), quality=15)
+            pixels = imageio.decode_image(data).pixels
+        else:
+            pixels = u8(img)
+            data = imageio.encode_png(pixels)
+        canvas.append(pixels)
+        is_jpeg.append(float(i in (2, 7)))
+        uploads.append(data)
+    return np.stack(canvas), np.asarray(is_jpeg, np.float32), uploads
+
+
+def _fire_flags_of(torch, engine, canvas, is_jpeg):
+    """[N, 3] bool: the stages' per-image fire flags (deblock, deblur_veto,
+    deblur) of one run of the engine's restore-unet program on full
+    canvases, every data slot's shard on a mesh: what the engine's fetch
+    reads and counts as ``stage_fires.*``."""
+    from image_restoration_platform_tpu_torch.serve.engine import _fire_flags
+
+    n, h, w = canvas.shape[:3]
+    args = (engine._to_device(canvas), torch.tensor([[h, w]] * n, dtype=torch.int32, device=engine.device),
+            torch.from_numpy(is_jpeg).to(engine.device))
+    program = engine._program("restore-unet", "rgb")
+    if engine._is_multi_device():
+        flags = engine._run_data_parallel("restore-unet", program, args)[2]
+    else:
+        fires: dict = {}
+        program(engine.model("restore-unet"), *args, fires=fires)
+        flags = _fire_flags(fires, n, engine.device)
+    return flags.cpu().numpy().astype(bool)
+
+
+def _profiled_step(torch, fn) -> dict:
+    """Kernel ms and launches of one profiled call (the engine's own
+    annotation range left out): set beside the unprofiled step time, what
+    the card did and what the host waited on."""
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        fn()
+    busy, count, split, _ = _kernel_split(torch, prof, skip=("restore/",))
+    return {"kernel_ms": busy, "kernel_launches": count, "by_kind_ms": split}
+
+
+def phase_mesh(torch, np, report, card):
+    """The mesh surfaces on slot meshes of the card at full width, bf16,
+    shipped weights, each held to the unsharded port with the reference's
+    bars and its kernels' launches counted from 0: restore_batch through
+    RestoratorService on data=4 and data=2 x tensor=2, sr_tiled on data=4,
+    sr_spatial on spatial=4, both pipelines, two Trainer steps on data=2,
+    and the process group of one rank on NCCL."""
+    import socket
+
+    import torch.distributed as dist
+
+    from image_restoration_platform_tpu_torch import imageio
+    from image_restoration_platform_tpu_torch.config import ServingConfig
+    from image_restoration_platform_tpu_torch.obs.metrics import get_counters
+    from image_restoration_platform_tpu_torch.ops.cuda.attention import flash_kernel
+    from image_restoration_platform_tpu_torch.ops.cuda.blend import blend_kernel
+    from image_restoration_platform_tpu_torch.ops.deblur import motion_psf
+    from image_restoration_platform_tpu_torch.parallel import (
+        make_mesh, maybe_initialize_distributed, srnet_pipeline_apply, unet_pipeline_apply,
+    )
+    from image_restoration_platform_tpu_torch.serve import MicroBatcher, RestorationEngine, RestoratorService
+    from image_restoration_platform_tpu_torch.train import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    slots = [torch.device("cuda", 0)] * MESH_SLOTS
+    cfg = ServingConfig(size_buckets=(256, 512, 1024), max_batch=8)
+    single = RestorationEngine(device="cuda", dtype=torch.bfloat16, serving_config=cfg)
+    counters = get_counters()
+    out: dict = {"card": card, "parts_s": {}}
+    launches: dict = {"flash_attention": {}, "blend_tiles": {}}
+    mark = [time.perf_counter()]
+
+    def part_done(name: str) -> None:
+        out["parts_s"][name] = time.perf_counter() - mark[0]
+        mark[0] = time.perf_counter()
+
+    def step_ms(fn, reps: int = 5) -> float:
+        fn()
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        return 1e3 * statistics.median(times)
+
+    # --- restore-unet 512 b8: RestoratorService on the mesh engine, and the
+    # engine against the unsharded one on the same batch, image by image, with
+    # the stages' per-image fire flags held equal
+    canvas8, is_jpeg8, uploads = _mesh_restore_batch(np, imageio, motion_psf)
+    part_done("restore_inputs")
+    ref_out, ref_scores, _ = single.restore_batch(canvas8, is_jpeg=is_jpeg8)
+    ref_flags = _fire_flags_of(torch, single, canvas8, is_jpeg8)
+    check(ref_flags[:, [0, 2]].any(0).all() and not ref_flags[:, [0, 2]].all(0).any(),
+          f"the mesh batch should fire deblock and deblur on some images only: {ref_flags.tolist()}")
+    # the same in f32 (TF32 convolutions, torch's default): the spread of
+    # the unsharded engine between batch sizes is bf16 rounding
+    f32 = RestorationEngine(device="cuda", dtype=torch.float32, serving_config=cfg, param_cache=single.params_cache)
+    f32_b8 = f32.restore_batch(canvas8, is_jpeg=is_jpeg8)[0]
+    f32_pairs = np.concatenate([f32.restore_batch(canvas8[i : i + 2], is_jpeg=is_jpeg8[i : i + 2])[0]
+                                for i in range(0, 8, 2)])
+    out["f32_unsharded_b2_vs_b8"] = _levels_per_image(np, f32_pairs, f32_b8)
+    del f32
+    part_done("restore_f32_pairs")
+    out["restore_512_b8_single_ms"] = step_ms(lambda: single.restore_batch(canvas8, is_jpeg=is_jpeg8))
+    out["restore_512_b8_single_profile"] = _profiled_step(torch, lambda: single.restore_batch(canvas8, is_jpeg=is_jpeg8))
+    part_done("restore_unsharded")
+    for name, axes, per_batch in MESH_RESTORE:
+        shard = 8 // axes["data"]
+        # the unsharded engine at a data slot's batch size, shard by shard
+        by_shard = np.concatenate([single.restore_batch(canvas8[i : i + shard], is_jpeg=is_jpeg8[i : i + shard])[0]
+                                   for i in range(0, 8, shard)])
+        engine = RestorationEngine(dtype=torch.bfloat16, serving_config=cfg, param_cache=single.params_cache,
+                                   mesh=make_mesh(slots, **axes))
+        batcher = MicroBatcher(engine, cfg, device="cuda")
+        svc = RestoratorService(engine=engine, batcher=batcher, serving_config=cfg, device="cuda")
+        try:
+            check(svc.restore(uploads[0])["success"], f"mesh {name}: warm-up failed")
+            engine.restore_batch(canvas8, is_jpeg=is_jpeg8)  # replicas, cuDNN plans at the shard shapes
+            before = counters.snapshot()
+            _zero_launches(flash_kernel)
+            with ThreadPoolExecutor(max_workers=len(uploads)) as pool:
+                results = list(pool.map(svc.restore, uploads))
+            got_out, got_scores, meta = engine.restore_batch(canvas8, is_jpeg=is_jpeg8)
+            n = _read_launches("flash_attention", flash_kernel)
+            batches = int(_counter_delta(before, counters.snapshot()).get("restore_batches.512", 0))
+        finally:
+            batcher.shutdown()
+        for res in results:
+            check(res.get("success") is True, f"mesh {name}: {res.get('error')}")
+            check(res["metadata"]["sizeBucket"] == 512, f"mesh {name}: bucket {res['metadata']['sizeBucket']}")
+        flags = _fire_flags_of(torch, engine, canvas8, is_jpeg8)
+        cmp = {**_levels(np, got_out, ref_out), "per_image": _levels_per_image(np, got_out, ref_out),
+               "scores_max_abs": float(np.abs(got_scores - ref_scores).max()),
+               "vs_unsharded_at_shard_batch": _levels(np, got_out, by_shard),
+               "unsharded_shard_batch_vs_b8": _levels_per_image(np, by_shard, ref_out),
+               "stage_fires": flags.sum(0).tolist(), "batches": batches, "attention_launches": n,
+               "batch_bucket": meta["batchBucket"],
+               "step_ms": step_ms(lambda: engine.restore_batch(canvas8, is_jpeg=is_jpeg8)),
+               "profile": _profiled_step(torch, lambda: engine.restore_batch(canvas8, is_jpeg=is_jpeg8))}
+        print(json.dumps({f"mesh_restore_{name}": cmp}), flush=True)
+        check(n == per_batch * batches, f"mesh {name}: {n} attention launches in {batches} batches, "
+                                        f"expected {per_batch} a batch")
+        check(np.array_equal(flags, ref_flags), f"mesh {name}: stage fires {flags.tolist()} against the "
+                                                f"unsharded engine's {ref_flags.tolist()}")
+        check(cmp["mean_levels"] < MESH_MEAN_LEVELS and cmp["scores_max_abs"] <= MESH_SCORES_ATOL,
+              f"mesh {name} against the unsharded engine: {cmp}")
+        if axes.get("tensor", 1) == 1:  # each slot runs the unsharded program on its shard
+            check(cmp["vs_unsharded_at_shard_batch"]["max_levels"] == 0,
+                  f"mesh {name} against the unsharded engine at the shard's batch size: {cmp}")
+        out[f"restore_{name}"] = cmp
+        launches["flash_attention"][f"mesh_restore_{name}"] = n
+        part_done(f"restore_{name}")
+
+    # --- sr-x2 2048 -> 4096 with the tiles split over data=4: equal, one blend
+    canvas2048 = _photo_large(np, 11, 2048, 2048)
+    ref_sr, _ = single.sr_tiled(canvas2048, "sr-x2")
+    tiled = RestorationEngine(dtype=torch.bfloat16, serving_config=cfg, param_cache=single.params_cache,
+                              mesh=make_mesh(slots, data=4))
+    tiled.sr_tiled(canvas2048, "sr-x2")
+    _zero_launches(blend_kernel)
+    got_sr, _ = tiled.sr_tiled(canvas2048, "sr-x2")
+    n = _read_launches("blend_tiles", blend_kernel)
+    cmp = {**_levels(np, got_sr, ref_sr), "blend_launches": n, "single_ms": step_ms(
+        lambda: single.sr_tiled(canvas2048, "sr-x2"), 3), "mesh_ms": step_ms(lambda: tiled.sr_tiled(canvas2048, "sr-x2"), 3)}
+    print(json.dumps({"mesh_sr_tiled_data4": cmp}), flush=True)
+    check(n == 1, f"mesh sr_tiled: {n} blend launches")
+    check(cmp["max_levels"] == 0, f"mesh sr_tiled differs from the unsharded call: {cmp}")
+    out["sr_tiled_data4"] = cmp
+    launches["blend_tiles"]["mesh_sr_tiled"] = n
+    part_done("sr_tiled")
+
+    # --- one canvas row-sharded over spatial=4 against the unsharded forward
+    # (limiter included) of the same padded canvas
+    spatial = RestorationEngine(dtype=torch.bfloat16, serving_config=cfg, param_cache=single.params_cache,
+                                mesh=make_mesh(slots, spatial=4))
+    model = single.model("sr-x2")
+    for name, canvas in (("2048", canvas2048), (f"{SPATIAL_ROWS}x1100", _photo_large(np, 12, SPATIAL_ROWS, 1100))):
+        got, meta = spatial.sr_spatial(canvas, "sr-x2")
+        pad = (-canvas.shape[0]) % 4
+        padded = np.concatenate([canvas, np.repeat(canvas[-1:], pad, axis=0)], axis=0) if pad else canvas
+        with torch.inference_mode():
+            x = torch.from_numpy(padded).cuda()[None].to(torch.bfloat16) / 255.0
+            ref = torch.clamp(torch.round(model(x).float() * 255.0), 0, 255).to(torch.uint8)[0].cpu().numpy()
+        ref = ref[: canvas.shape[0] * 2]
+        diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+        rows = padded.shape[0] * 2
+        seams = [r for b in range(1, 4) for r in (rows // 4 * b - 1, rows // 4 * b) if r < diff.shape[0]]
+        cmp = {**_levels(np, got, ref), "seam_mean_levels": float(diff[seams].mean()), "padded_rows": meta["paddedRows"],
+               "halo": meta["halo"], "shape": list(got.shape)}
+        print(json.dumps({f"mesh_sr_spatial_{name}": cmp}), flush=True)
+        check(got.shape == (canvas.shape[0] * 2, canvas.shape[1] * 2, 3) and meta["paddedRows"] == pad,
+              f"sr_spatial {name}: {cmp}")
+        check(cmp["max_levels"] <= SPATIAL_MAX_LEVELS, f"sr_spatial {name} against the unsharded forward: {cmp}")
+        check(cmp["seam_mean_levels"] <= max(0.5, 1.5 * cmp["mean_levels"]), f"sr_spatial {name} seams: {cmp}")
+        out[f"sr_spatial_{name}"] = cmp
+    part_done("sr_spatial")
+
+    # --- the pipelines at 512, n_micro 4, against the unpipelined forwards
+    with torch.inference_mode():
+        x = torch.from_numpy(canvas8).cuda().to(torch.bfloat16) / 255.0
+        ref = model(x)
+        got = srnet_pipeline_apply(model, x, make_mesh(slots, pipe=4), n_micro=4)
+        sr_err = float((got - ref).abs().max())
+        unet = single.model("restore-unet")
+        cond = torch.rand((8, 28), generator=torch.Generator().manual_seed(7)).cuda().to(torch.bfloat16)
+        ref = unet(x, cond)
+        _zero_launches(flash_kernel)
+        got = unet_pipeline_apply(unet, x, cond, make_mesh(slots, data=2, pipe=2), n_micro=4)
+        n = _read_launches("flash_attention", flash_kernel)
+        u8 = lambda t: torch.round(torch.clamp(t.float(), 0, 1) * 255.0).to(torch.uint8).cpu().numpy()  # noqa: E731
+        unet_cmp = _levels(np, u8(got), u8(ref))
+    cmp = {"srnet_pipe4_max_abs": sr_err, "unet_data2_pipe2": unet_cmp, "unet_attention_launches": n}
+    print(json.dumps({"mesh_pipelines": cmp}), flush=True)
+    check(sr_err <= PIPE_BF16_ATOL, f"SRNet pipeline against the forward: {sr_err}")
+    check(unet_cmp["mean_levels"] < MESH_MEAN_LEVELS, f"UNet pipeline against the forward: {unet_cmp}")
+    check(n == 8, f"UNet pipeline: {n} attention launches, expected 4 microbatches x 2 data rows")
+    out["pipelines"] = cmp
+    launches["flash_attention"]["unet_pipeline"] = n
+    part_done("pipelines")
+
+    # --- two Trainer steps on data=2 against two unsharded steps, in f32
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        tcfg = TrainConfig(**{**TRAIN_RECIPE, "batch_size": MESH_TRAIN_BATCH, "compute_dtype": torch.float32,
+                              "total_steps": 20, "warmup_steps": 1})
+        plain = Trainer(tcfg, device="cuda", warm_start=True)
+        meshed = Trainer(tcfg, warm_start=True, mesh=make_mesh(slots[:2], data=2))
+        steps, n = [], 0
+        for _ in range(2):
+            batch = plain.next_batch()
+            check(all(torch.equal(a, b) for a, b in zip(batch, meshed.next_batch())), "the two data streams differ")
+            lp = float(plain.step_fn(plain.state, *batch))
+            _zero_launches(flash_kernel)
+            lm = float(meshed.step_fn(meshed.state, *batch))
+            n += _read_launches("flash_attention", flash_kernel)
+            gp = torch.cat([p.grad.reshape(-1) for p in plain.state.model.parameters()])
+            gm = torch.cat([p.grad.reshape(-1) for p in meshed.state.model.parameters()])
+            steps.append({"loss": lp, "loss_rel": abs(lm - lp) / abs(lp),
+                          "grad_cosine": float(torch.nn.functional.cosine_similarity(gp, gm, dim=0)),
+                          "grad_norm_rel": float(abs(gm.norm() - gp.norm()) / gp.norm())})
+        lr = tcfg.learning_rate
+        far = sum(int(((a - b).abs() > 0.01 * lr).sum()) for a, b in zip(
+            plain.state.model.parameters(), meshed.state.model.parameters()))
+        total = sum(p.numel() for p in plain.state.model.parameters())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cmp = {"steps": steps, "params_far_share": far / total, "attention_launches": n}
+    print(json.dumps({"mesh_train_data2": cmp}), flush=True)
+    for s in steps:
+        check(s["loss_rel"] <= MESH_LOSS_RTOL and s["grad_cosine"] >= MESH_GRAD_COSINE
+              and s["grad_norm_rel"] <= MESH_GRAD_NORM_RTOL, f"mesh train step against the unsharded one: {cmp}")
+    check(far / total <= RESUME_FAR_SHARE, f"mesh train parameters: {cmp}")
+    check(n == 4, f"mesh train: {n} attention launches in 2 steps, expected one a slot a step")
+    out["train_data2"] = cmp
+    launches["flash_attention"]["mesh_train"] = n
+    part_done("train")
+
+    # --- the data axis across processes: a group of one rank on NCCL
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    env = {"JAX_COORDINATOR": f"localhost:{sock.getsockname()[1]}", "JAX_NUM_PROCESSES": "1", "JAX_PROCESS_ID": "0"}
+    sock.close()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        check(maybe_initialize_distributed() and maybe_initialize_distributed(), "no process group")
+        value = torch.full((4,), 3.0, device="cuda")
+        dist.all_reduce(value)
+        group = {"backend": dist.get_backend(), "world_size": dist.get_world_size(), "all_reduce": float(value[0])}
+        dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(json.dumps({"mesh_process_group": group}), flush=True)
+    check(group == {"backend": "nccl", "world_size": 1, "all_reduce": 3.0}, f"process group {group}")
+    out["process_group"] = group
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"mesh_phase": {"seconds": out["seconds"], "parts_s": out["parts_s"],
+                                     "restore_512_b8_single_ms": out["restore_512_b8_single_ms"],
+                                     "restore_512_b8_single_profile": out["restore_512_b8_single_profile"],
+                                     "f32_unsharded_b2_vs_b8": out["f32_unsharded_b2_vs_b8"]}}), flush=True)
+    report["mesh"] = out
+    return launches
+
+
 def phase_throughput(torch, np, report, svc, engine, reqs, card):
     from image_restoration_platform_tpu_torch import imageio
     from image_restoration_platform_tpu_torch.obs.metrics import get_counters
@@ -1274,18 +1637,23 @@ def phase_throughput(torch, np, report, svc, engine, reqs, card):
     out["512_b8"] = {"images_per_s": len(lat512) / wall, "p50_ms": 1e3 * statistics.median(lat512),
                      "mean_batch": len(lat512) / max(batches, 1)}
 
-    # the engine alone: host clock around restore_batch, which ends in the fetch
+    # the engine alone: host clock around restore_batch, which ends in the
+    # fetch; with the stages' host syncs and fire counts a step
     dec = {s: imageio.decode_image(reqs[f"clean{s}"][0]).pixels for s in (256, 512)}
     for size, batch in ((256, 1), (512, 8)):
         canvas = np.repeat(dec[size][None], batch, axis=0)
         for _ in range(2):
             engine.restore_batch(canvas, egress="yuv420")
+        before = counters.snapshot()
         times = []
         for _ in range(10):
             t = time.perf_counter()
             engine.restore_batch(canvas, egress="yuv420")
             times.append(time.perf_counter() - t)
+        delta = _counter_delta(before, counters.snapshot())
         out[f"engine_{size}_b{batch}_ms"] = 1e3 * statistics.median(times)
+        out[f"engine_{size}_b{batch}_per_step"] = {
+            k: v / 10 for k, v in delta.items() if k.startswith(("host_syncs.", "stage_fires."))}
 
     # where the device time goes in one engine step of each cell: kernel
     # time from the profiler (the step's own annotation range excluded), idle
@@ -1425,6 +1793,8 @@ def main() -> int:
     parser.add_argument("--report", help="also write the full report as JSON to this path")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernels' build and checks; prints no result lines")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="build the kernels and run the mesh phase (7) alone; prints no result lines")
     args = parser.parse_args()
     try:
         import torch
@@ -1468,6 +1838,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {line.strip()}", flush=True)
 
+    if args.mesh_only:
+        phase_mesh(torch, np, report, card)
+        print(f"mesh only: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     rows = phase_kernels(torch, report)
     blend_rows = phase_blend_kernel(torch, report)
     if args.kernels_only:
@@ -1478,6 +1852,8 @@ def main() -> int:
     for name, n in service.items():
         launches[name]["service_graph"] = n
     launches["flash_attention"].update(phase_train(torch, np, report, card))
+    for name, by_path in phase_mesh(torch, np, report, card).items():
+        launches[name].update(by_path)
 
     main_row = next(r for r in rows if r["shape"] == [8, 4, 4096, 64])
     blend_row = blend_rows[0]  # the 2K -> 4K grid the SR path runs

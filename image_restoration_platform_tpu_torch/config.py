@@ -7,8 +7,11 @@ environment variables, same defaults.
 
 Not ported: ``SERVE_FOLD_W`` / ``SERVE_FOLD_W_SR``. The W-fold
 (models/folded.py in the JAX package) is a TPU lane-fill reparameterization
-of the same function; it has no counterpart here. ``MeshConfig`` waits for
-the port of ``parallel/``.
+of the same function; it has no counterpart here.
+
+``DEVICE_COST_PER_HOUR_USD`` is the port's own: the price of one card-hour
+that ``estimatedCostUsd`` and the ``tpu_cost_usd`` counter are computed at
+(the reference prices a TPU chip-hour instead).
 """
 
 from __future__ import annotations
@@ -105,6 +108,12 @@ class QueueConfig:
     keep_failed: int = field(default_factory=lambda: _env_int("JOBS_KEEP_FAILED", 500))
 
 
+# an operator's price for one H100 card-hour, not a measurement: a round
+# figure for renting one card on demand; set DEVICE_COST_PER_HOUR_USD to
+# what the deployment pays
+DEVICE_COST_PER_HOUR_USD = 3.0
+
+
 @dataclass
 class ServingConfig:
     # micro-batching: requests within max_wait_ms coalesce into one batch
@@ -145,6 +154,18 @@ class ServingConfig:
     restore_egress: str = field(
         default_factory=lambda: os.environ.get("SERVE_RESTORE_EGRESS", "yuv420")
     )
+    # USD per card-hour behind estimatedCostUsd and tpu_cost_usd
+    device_cost_per_hour_usd: float = field(
+        default_factory=lambda: _env_float("DEVICE_COST_PER_HOUR_USD", DEVICE_COST_PER_HOUR_USD)
+    )
+
+
+@dataclass
+class MeshConfig:
+    # axis sizes; -1 means "use all remaining devices on the data axis"
+    data: int = field(default_factory=lambda: _env_int("MESH_DATA", -1))
+    tensor: int = field(default_factory=lambda: _env_int("MESH_TENSOR", 1))
+    spatial: int = field(default_factory=lambda: _env_int("MESH_SPATIAL", 1))
 
 
 @dataclass
@@ -159,6 +180,7 @@ class Config:
     credits: CreditsConfig = field(default_factory=CreditsConfig)
     queue: QueueConfig = field(default_factory=QueueConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def load_config() -> Config:

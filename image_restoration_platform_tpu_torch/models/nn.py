@@ -133,10 +133,15 @@ def group_norm_cat(
     return out
 
 
+def film_modulate(x: torch.Tensor, gamma_beta: torch.Tensor) -> torch.Tensor:
+    """x * (1 + gamma) + beta, gamma and beta the halves of [N, 2C]."""
+    gamma, beta = gamma_beta.chunk(2, dim=-1)
+    return x * (1.0 + gamma[:, None, None, :]) + beta[:, None, None, :]
+
+
 def film(x: torch.Tensor, cond: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x * (1 + gamma) + beta with (gamma, beta) = dense(cond), in x's type."""
-    gamma, beta = dense(cond.to(x.dtype), w, b).chunk(2, dim=-1)
-    return x * (1.0 + gamma[:, None, None, :]) + beta[:, None, None, :]
+    return film_modulate(x, dense(cond.to(x.dtype), w, b))
 
 
 def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -241,6 +246,13 @@ class GroupNorm(nn.Module):
         return group_norm_cat(parts, self.scale, self.bias, groups)
 
 
+def takes_attention_kernel(tokens: int, head_dim: int) -> bool:
+    """Whether ``Attention`` routes [N, H, tokens, head_dim] to the flash
+    attention kernel (the reference's routing); other shapes take the plain
+    einsum form there and here."""
+    return tokens % min(256, tokens) == 0 and head_dim % 8 == 0
+
+
 class Attention(nn.Module):
     """Spatial self-attention over the H x W grid (the UNet bottleneck)."""
 
@@ -257,7 +269,7 @@ class Attention(nn.Module):
         y = self.norm(x)
         q, k, v = self.qkv(y.reshape(n, t, c)).chunk(3, dim=-1)
         q, k, v = (a.reshape(n, t, heads, hd).permute(0, 2, 1, 3).contiguous() for a in (q, k, v))
-        if t % min(256, t) == 0 and hd % 8 == 0:
+        if takes_attention_kernel(t, hd):
             out = flash_attention(q, k, v)
         else:
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))

@@ -18,6 +18,7 @@ from ..utils.logging import get_logger
 from . import weights as weights_mod
 from .diffusion import DiffusionConfig
 from .srnet import SRNet, SRNetConfig
+from .nn import takes_attention_kernel
 from .unet import RestorationUNet, UNetConfig
 
 
@@ -63,6 +64,46 @@ def get_family(name: str) -> ModelFamily:
 
 def list_families() -> list[str]:
     return sorted(_FAMILIES)
+
+
+def attention_shapes(family_name: str, sizes, batch: int) -> list[tuple[int, int, int, int]]:
+    """The [N, H, T, D] shapes at which ``family_name`` launches the flash
+    attention kernel for square inputs of ``sizes`` in batches of up to
+    ``batch``: the bottleneck's tokens at each size up to
+    ``max_attn_tokens``, routed as ``Attention`` routes them."""
+    cfg = get_family(family_name).config
+    cfg = getattr(cfg, "unet", cfg)  # the diffusion family's model
+    if not isinstance(cfg, UNetConfig):
+        return []
+    channels = cfg.base_channels * cfg.channel_mults[-1]
+    head_dim = channels // cfg.attn_heads
+    shapes = []
+    for size in sizes:
+        side = -(-size // cfg.input_scale)
+        for _ in range(len(cfg.channel_mults) - 1):
+            side = -(-side // 2)  # a stride-2 SAME conv
+        tokens = side * side
+        if tokens <= cfg.max_attn_tokens and takes_attention_kernel(tokens, head_dim):
+            shapes.append((batch, cfg.attn_heads, tokens, head_dim))
+    return shapes
+
+
+def check_attention_shapes(family_name: str, sizes, batch: int, dtype: torch.dtype) -> None:
+    """Raise, naming the family and the shape, if the flash attention
+    kernel cannot take a shape the family will give it (head dim, token
+    count, batch x heads; ``ops/cuda/attention.py:launch_plan`` states the
+    limits). The engine and the trainer call it when they load a family on
+    a card, so the refusal comes at load and not at the first launch."""
+    from ..ops.cuda.attention import launch_plan
+
+    for shape in attention_shapes(family_name, sizes, batch):
+        try:
+            launch_plan(shape, dtype)
+        except (ValueError, TypeError) as error:
+            raise ValueError(
+                f"model family {family_name!r} gives the attention kernel [N, H, T, D] = {list(shape)}, "
+                f"which it does not take: {error}"
+            ) from error
 
 
 class ParamCache:

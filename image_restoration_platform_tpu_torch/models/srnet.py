@@ -11,9 +11,9 @@ parameter names follow the JAX parameter tree (``stem``, ``blocks/<i>/conv1``,
 The limiter and its parts (``upsample_tent``, ``local_detail``, ``_lowpass``,
 ``residual_limit``) are plain functions on NHWC tensors. Edge padding is
 written as a concat of the repeated border, since ``F.pad`` has no replicate
-mode for single axes of a channels-last 4-D tensor. The row-sharded forward
-(``apply_rowsharded`` in the JAX package) belongs to the mesh programs and is
-not part of this module yet.
+mode for single axes of a channels-last 4-D tensor. ``apply_rowsharded`` is
+the network on row blocks over the mesh's spatial slots
+(``serve/programs/sr.py:build_sr_spatial_program``).
 """
 
 from __future__ import annotations
@@ -158,6 +158,31 @@ def receptive_halo(config: SRNetConfig = SRNetConfig()) -> int:
     """Receptive-field radius in input rows: stem (1) + num_blocks x two 3x3
     convs (2 each) + pre_up (1) + up (1)."""
     return 2 * config.num_blocks + 3
+
+
+def apply_rowsharded(models: list["SRNet"], blocks: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The network WITHOUT the limiter on row blocks: [N, H_loc, W, 3] in
+    [0, 1] on each spatial slot, ``models`` the network's copy on each slot
+    -> [N, H_loc * scale, W * scale, 3] per slot. Every convolution
+    exchanges its own one-row halo (``parallel.halo.conv2d_rowsharded``),
+    so the stitched rows equal the unlimited forward of the whole image.
+    The limiter is local in (input, output), so the spatial program applies
+    ``residual_limit`` once to the gathered canvas instead."""
+    from ..parallel.halo import conv2d_rowsharded
+
+    c = models[0].config
+
+    def conv(name, xs):
+        return conv2d_rowsharded([m.get_submodule(name) for m in models], xs)
+
+    h = conv("stem", blocks)
+    feat = h
+    for i in range(c.num_blocks):
+        r = conv(f"blocks.{i}.conv2", [L.silu(a) for a in conv(f"blocks.{i}.conv1", feat)])
+        feat = [f + 0.2 * b for f, b in zip(feat, r)]
+    feat = [a + b for a, b in zip(conv("pre_up", feat), h)]
+    up = conv("up", feat)
+    return [L.pixel_shuffle(u, c.scale) + L.upsample_nearest(x, c.scale) for u, x in zip(up, blocks)]
 
 
 class SRBlock(nn.Module):

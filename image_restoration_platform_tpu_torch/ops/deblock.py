@@ -7,8 +7,9 @@ runs on every batch; the four-grid shrinkage and the reclassification run
 only when some image of the batch fires. That decision is a host branch on
 ``fire.any()``, which synchronises with the device once per batch (the
 reference's ``lax.cond`` stays on the device); each one is counted and
-timed under ``deblock`` by ``obs.metrics.host_flag``. Non-firing images
-pass through as the same bytes.
+timed under ``deblock`` by ``obs.metrics.host_flag``. Each image takes its
+result or its input by its own fire flag (``torch.where``), so non-firing
+images pass through as the same bytes whatever their batch-mates do.
 """
 
 from __future__ import annotations
@@ -136,10 +137,12 @@ def deblock_canvas_batch(canvas_u8: torch.Tensor, valid_hw: torch.Tensor):
     return torch.where(fire[:, None, None, None], out_u8, canvas_u8), fire
 
 
-def deblock_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond):
+def deblock_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond, fires=None):
     """The serving insertion, before the deblur stage. On fire, structural
     scores are recomputed on the deblocked canvas while photometric scores
-    keep the original classification. Returns (canvas_u8, scores, cond)."""
+    keep the original classification; a non-firing image keeps its canvas,
+    scores and conditioning. ``fires``, a dict, receives the [B] fire mask
+    under ``"deblock"``. Returns (canvas_u8, scores, cond)."""
     from ..classify.fused import PHOTOMETRIC, batch_classify_and_condition, conditioning_from_scores
 
     if not _applies(canvas_u8):
@@ -147,6 +150,8 @@ def deblock_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond):
     x = canvas_u8.float()
     lam = deblock_lambda(x, valid_hw)
     fire = lam > LAM_MIN_FIRE
+    if fires is not None:
+        fires["deblock"] = fire
     if not host_flag("deblock", fire.any()):
         return canvas_u8, scores, cond
     out_u8 = torch.clamp(torch.round(_deblock(x, lam)), 0, 255).to(torch.uint8)
@@ -155,4 +160,4 @@ def deblock_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond):
     photometric = torch.tensor(PHOTOMETRIC, device=scores.device)
     mixed = post_scores * (1.0 - photometric) + scores * photometric
     mixed = torch.where(fire[:, None], mixed, scores)
-    return deblocked, mixed, conditioning_from_scores(mixed)
+    return deblocked, mixed, torch.where(fire[:, None], conditioning_from_scores(mixed), cond)

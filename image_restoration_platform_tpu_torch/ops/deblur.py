@@ -15,6 +15,9 @@ and timed by ``obs.metrics.host_flag``:
 - ``deblur``: the Wiener inversion and the reclassification run only when
   some image fired.
 
+Each image takes its own result by its flag (``torch.where``), so an image's
+output does not depend on whether its batch-mates fire.
+
 ``deblur_canvas_f32`` is the float HDR pre-pass of 16-bit PNG uploads: the
 same estimator, gates and backstop on [0, 1] f32 canvases, with the disk
 channel on.
@@ -279,8 +282,11 @@ def select_hypothesis(
     compression: torch.Tensor,
     size: int = ANALYSIS_SIZE,
     enable_disk: bool = DISK_CHANNEL_ENABLED,
+    fires: dict | None = None,
 ):
-    """Per-kind gated selection. Returns (best [B] int64, fire [B] bool)."""
+    """Per-kind gated selection. Returns (best [B] int64, fire [B] bool).
+    ``fires``, a dict, receives under ``"deblur_veto"`` the [B] mask of the
+    images that passed the spectral motion gates, which the veto decides."""
     c = _constants_on(gray.device, size)
     crops = _corner_crops(gray, valid_hw, size)
     corr, nc, noise_ratio = _spectral_evidence(crops, size)
@@ -307,6 +313,8 @@ def select_hypothesis(
     )
     mot_ok = (m_corr >= CORR_MOTION_MIN) & (m_nc >= m_req)
 
+    if fires is not None:
+        fires["deblur_veto"] = mot_ok
     if host_flag("deblur_veto", mot_ok.any()):
         ratio = _dir_ratio(crops, c["angles"][best_mot])
     else:
@@ -357,7 +365,10 @@ def _wiener(x: torch.Tensor, best: torch.Tensor, compression: torch.Tensor) -> t
 
 
 def _to_u8(raw: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.round(torch.clamp(raw, 0.0, 1.0) * 255.0), 0, 255).to(torch.uint8)
+    """[B,H,W,C] in [0, 1] -> u8, contiguous in NHWC: ``raw`` comes from the
+    inverse FFT in NCHW strides, and a canvas in those strides would change
+    the layout (and the convolution algorithms) of the backbone after it."""
+    return torch.clamp(torch.round(torch.clamp(raw, 0.0, 1.0) * 255.0), 0, 255).to(torch.uint8).contiguous()
 
 
 def deblur_canvas_batch(
@@ -398,22 +409,29 @@ def deblur_canvas_f32(
     return torch.where(fire[:, None, None, None], torch.clamp(raw, 0.0, 1.0), x)
 
 
-def deblur_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond):
+def deblur_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond, fires=None):
     """The serving insertion: deblur the canvas, then rebuild conditioning.
     On fire, structural scores come from the deconvolved canvas,
     photometric ones from the original classification, and fade/colorShift
-    are zeroed. Returns (canvas_u8, cond)."""
+    are zeroed; a non-firing image keeps its canvas and conditioning.
+    ``fires``, a dict, receives the [B] masks of the veto's gate
+    (``"deblur_veto"``) and of the images deblurred (``"deblur"``). Returns
+    (canvas_u8, cond)."""
     from ..classify.fused import PHOTOMETRIC, batch_classify_and_condition, conditioning_from_scores
 
     b, h, w, _ = canvas_u8.shape
     if h < ANALYSIS_SIZE or w < ANALYSIS_SIZE:
         return canvas_u8, cond
     x = canvas_u8.float() / 255.0
-    best, fire_pre = select_hypothesis(x.mean(dim=-1), valid_hw, scores[:, 3])
+    best, fire_pre = select_hypothesis(x.mean(dim=-1), valid_hw, scores[:, 3], fires=fires)
     if not host_flag("deblur", fire_pre.any()):
+        if fires is not None:
+            fires["deblur"] = fire_pre
         return canvas_u8, cond
     raw = _wiener(x, best, scores[:, 3])
     fire = fire_pre & (_tv(raw, valid_hw) <= TV_RATIO_MAX * _tv(x, valid_hw) + 1e-6)
+    if fires is not None:
+        fires["deblur"] = fire
     deblurred = torch.where(fire[:, None, None, None], _to_u8(raw), canvas_u8)
 
     post_scores, _ = batch_classify_and_condition(deblurred.float(), valid_hw, is_jpeg_f)
@@ -421,4 +439,4 @@ def deblur_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond):
     mixed = post_scores * (1.0 - photometric) + scores * photometric
     conservative = mixed * torch.tensor([1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0], device=scores.device)
     mixed = torch.where(fire[:, None], conservative, mixed)
-    return deblurred, conditioning_from_scores(mixed)
+    return deblurred, torch.where(fire[:, None], conditioning_from_scores(mixed), cond)

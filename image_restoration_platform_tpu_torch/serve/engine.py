@@ -7,14 +7,25 @@ image_restoration_platform_tpu/serve/engine.py: ``restore_batch`` and
 ``sr_tiled``, and the boot-time ``warmup`` / ``warmup_serving``. Restore
 batches are padded to a power-of-two bucket by repeating the last row; every
 surface runs its program on the engine's device and fetches all outputs in
-one synchronising device->host copy. Device seconds are overlap-corrected
-across pipelined batches.
+one synchronising device->host copy, which also carries the deblock and
+deblur stages' per-image fire flags (counted under ``stage_fires.*``).
+Device seconds are overlap-corrected across pipelined batches.
 
-The engine runs on ``device="cuda"`` unless the caller asks for the CPU; it
-never falls back to the CPU by itself. Mesh serving (``sr_spatial``, the mesh
-tiled program) and sharding wait for the port of ``parallel/``. The
-executable disk cache (serve/exec_cache.py) has no counterpart: it stores
-compiled XLA executables, and an eager program has none.
+With a ``mesh`` of more than one slot (parallel/mesh.py), ``restore_batch``
+pads the bucket to a multiple of the data size and splits it over the data
+slots, each running the program on its own model replica (column-parallel
+over its tensor slots when the tensor axis is larger than 1); ``sr_tiled``
+splits the tile axis over the data slots and blends once on the first slot;
+``sr_spatial`` row-shards one canvas over the spatial slots. Every output
+comes back to the first slot for the one fetch. The other surfaces run on the
+first slot. A mesh of one slot is the single-device path.
+
+The engine runs on ``device="cuda"`` (or its mesh's slots) unless the caller
+asks for the CPU; it never falls back to the CPU by itself, and loading a
+family on a card first checks the attention shapes it will launch
+(``models.registry.check_attention_shapes``). The executable disk cache
+(serve/exec_cache.py) has no counterpart: it stores compiled XLA
+executables, and an eager program has none.
 """
 
 from __future__ import annotations
@@ -29,9 +40,13 @@ import torch
 from ..config import ServingConfig
 from ..models import ParamCache, get_family
 from ..models.nn import cast_for_compute
+from ..models.registry import check_attention_shapes
 from ..obs.metrics import get_counters
 from ..obs.tracing import device_trace, get_tracer
+from ..parallel.mesh import AXIS_DATA, AXIS_SPATIAL
+from ..parallel.sharding import gather, replicate, shard_params, split_batch
 from ..utils.logging import get_logger
+from .programs.restore import STAGE_FIRES
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -69,16 +84,31 @@ def _batch_bucket(n: int, max_batch: int) -> int:
     return b
 
 
+def _fire_flags(fires: dict, rows: int, device: torch.device) -> torch.Tensor:
+    """[rows, len(STAGE_FIRES)] u8 of the stages' fire masks (0 where a
+    stage did not run)."""
+    zeros = torch.zeros(rows, dtype=torch.bool, device=device)
+    return torch.stack([fires.get(name, zeros) for name in STAGE_FIRES], dim=1).to(torch.uint8)
+
+
 class RestorationEngine:
     def __init__(
         self,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
         dtype: torch.dtype | None = None,
         serving_config: ServingConfig | None = None,
         param_cache: ParamCache | None = None,
         seed: int = 0,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        """``device`` defaults to "cuda", or with a ``mesh`` to its first
+        slot (a device of another type raises)."""
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.primary.type:
+                raise ValueError(f"engine device {device} is not on the mesh's slots ({mesh.primary})")
+            device = mesh.primary
+        self.mesh = mesh  # None: the single-device path
+        self.device = resolve_device("cuda" if device is None else device)
         # bf16 on the card, as the reference serves; f32 on the CPU, where
         # bf16 convolutions are slow and the tests compare in f32
         self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
@@ -92,6 +122,7 @@ class RestorationEngine:
         self.logger = get_logger("engine")
         self._tracer = get_tracer("engine")
         self._models: dict[str, torch.nn.Module] = {}
+        self._replicas: dict[tuple, list[torch.nn.Module]] = {}
         self._programs: dict = {}
         self._lock = threading.Lock()
         self.device_seconds_total = 0.0
@@ -113,6 +144,9 @@ class RestorationEngine:
             self.device_seconds_total += device_s
         return device_s
 
+    def _is_multi_device(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
     # ----------------------------------------------------- models/programs
 
     def _uses_s2d_io(self, family_name: str) -> bool:
@@ -131,11 +165,34 @@ class RestorationEngine:
         with self._lock:
             if family_name not in self._models:
                 family = get_family(family_name)
+                if self.device.type == "cuda":
+                    check_attention_shapes(family_name, self.config.size_buckets, self.config.max_batch, self.dtype)
                 m = family.build()
                 m.load_state_dict(self.params_cache.get(family_name), strict=True)
                 m = cast_for_compute(m, self.dtype, channels_last=self.device.type == "cuda")
                 self._models[family_name] = m.to(self.device).eval()
             return self._models[family_name]
+
+    def _data_replicas(self, family_name: str) -> list[torch.nn.Module]:
+        """The family's model for each data row of the mesh, column-parallel
+        over the row's tensor slots when the tensor axis is larger than 1."""
+        model = self.model(family_name)
+        with self._lock:
+            key = ("data", family_name)
+            if key not in self._replicas:
+                self._replicas[key] = [
+                    shard_params(model, self.mesh, i).eval() for i in range(self.mesh.shape[AXIS_DATA])
+                ]
+            return self._replicas[key]
+
+    def _spatial_replicas(self, family_name: str) -> list[torch.nn.Module]:
+        """The family's model on each spatial slot."""
+        model = self.model(family_name)
+        with self._lock:
+            key = ("spatial", family_name)
+            if key not in self._replicas:
+                self._replicas[key] = [replicate(model, d).eval() for d in self.mesh.slots(AXIS_SPATIAL)]
+            return self._replicas[key]
 
     def _cached_program(self, key: tuple, build):
         with self._lock:
@@ -184,9 +241,11 @@ class RestorationEngine:
         returns a fetch() closure that synchronises and returns (out, scores
         [N,7], meta). The stages' host branches synchronise inside the
         launch (ops/deblock.py, ops/deblur.py), so the launch returns once
-        the last of them is decided, with the backbone still queued. The
-        diffusion family has RGB egress only and draws its sampler's noise
-        from the engine's seeded generator."""
+        the last of them is decided, with the backbone still queued. On a
+        mesh the bucket is padded to a multiple of the data size and each
+        data slot runs its shard. The diffusion family has RGB egress only
+        and draws its sampler's noise (for the whole bucket) from the
+        engine's seeded generator."""
         n = canvas_u8.shape[0]
         if valid_hw is None:
             valid_hw = np.tile(np.asarray([canvas_u8.shape[1], canvas_u8.shape[2]], np.int32), (n, 1))
@@ -195,7 +254,10 @@ class RestorationEngine:
         valid_hw = np.asarray(valid_hw, dtype=np.int32)
         is_jpeg_f = np.asarray(is_jpeg, dtype=np.float32)
 
+        dp = self.mesh.shape[AXIS_DATA] if self._is_multi_device() else 1
         bucket = _batch_bucket(n, self.config.max_batch)
+        if dp > 1:  # at least one image a data slot, and a multiple of them
+            bucket = -(-max(bucket, dp) // dp) * dp
         if bucket > n:
             pad = bucket - n
             canvas_u8 = np.concatenate([canvas_u8, np.repeat(canvas_u8[-1:], pad, axis=0)], axis=0)
@@ -225,16 +287,24 @@ class RestorationEngine:
                         tuple(args[0].shape), generator=self._generator, device=self.device, dtype=self.dtype
                     )
                 args += (noise,)
-            out, scores = program(model, *args)
+            if dp == 1:
+                fires: dict = {}
+                out, scores = program(model, *args, fires=fires)
+                flags = _fire_flags(fires, bucket, self.device)
+            else:
+                out, scores, flags = self._run_data_parallel(family_name, program, args)
             outs = out if isinstance(out, tuple) else (out,)
-            packed = _pack([*outs, scores])
+            packed = _pack([*outs, scores, flags])
 
         def fetch():
             t_fetch = time.perf_counter()
             host = packed.cpu().numpy()
             wall_s = time.perf_counter() - t0
             device_s = self._account_device_time(t0)
-            *arrays, scores_h = (a[:n] for a in _unpack(host, [*outs, scores]))
+            *arrays, scores_h, flags_h = (a[:n] for a in _unpack(host, [*outs, scores, flags]))
+            counters = get_counters()
+            for name, count in zip(STAGE_FIRES, flags_h.sum(axis=0, dtype=np.int64)):
+                counters.inc(f"stage_fires.{name}", int(count))
             meta = {
                 "engineRequestId": uuid.uuid4().hex,
                 "deviceSeconds": device_s,
@@ -249,6 +319,26 @@ class RestorationEngine:
             return arrays[0], scores_h, meta
 
         return fetch
+
+    def _run_data_parallel(self, family_name: str, program, args: tuple):
+        """The program on every data slot's shard of ``args`` with that
+        slot's replica; (out, scores, fire flags) gathered on the first
+        slot."""
+        replicas = self._data_replicas(family_name)
+        homes = [self.mesh.tensor_slots(i)[0] for i in range(len(replicas))]
+        shards = [split_batch(a, homes) for a in args]
+        outs, scores, flags = [], [], []
+        for i, (model, home) in enumerate(zip(replicas, homes)):
+            fires: dict = {}
+            out_i, scores_i = program(model, *(s[i] for s in shards), fires=fires)
+            outs.append(out_i)
+            scores.append(scores_i)
+            flags.append(_fire_flags(fires, scores_i.shape[0], home))
+        if isinstance(outs[0], tuple):  # plane egress: gather plane by plane
+            out = tuple(gather([o[k] for o in outs], self.device) for k in range(len(outs[0])))
+        else:
+            out = gather(outs, self.device)
+        return out, gather(scores, self.device), gather(flags, self.device)
 
     # ------------------------------------------- fusion, super-resolution
 
@@ -347,25 +437,69 @@ class RestorationEngine:
     ) -> tuple[np.ndarray, dict]:
         """Tiled super-resolution of one [H,W,3] u8 canvas with seam-free
         overlap-blend (2K -> 4K): tile extraction, batched SRNet calls over
-        tile chunks and one windowed fold, all on the device. Returns the
+        tile chunks and one windowed fold, all on the device; on a mesh the
+        tile chunks are split over the data slots. Returns the
         [H*scale,W*scale,3] u8 canvas, or with ``output="yuv420"`` its
         (Y, Cb, Cr) u8 planes."""
-        from .programs import build_sr_tiled_program
+        from .programs import build_sr_tiled_mesh_program, build_sr_tiled_program
 
         size = canvas_u8.shape[0]
-        model = self.model(family_name)
-        program = self._cached_program(
-            ("sr_tiled", family_name, tile, overlap, tile_batch, output),
-            lambda: build_sr_tiled_program(
-                family_name, dtype=self.dtype, tile=tile, overlap=overlap, tile_batch=tile_batch, output=output
-            ),
-        )
+        if self._is_multi_device():
+            model = self._data_replicas(family_name)
+            slots = [self.mesh.tensor_slots(i)[0] for i in range(len(model))]
+            program = self._cached_program(
+                ("sr_tiled_mesh", family_name, tile, overlap, tile_batch, output),
+                lambda: build_sr_tiled_mesh_program(
+                    family_name, dtype=self.dtype, slots=slots, tile=tile, overlap=overlap,
+                    tile_batch=tile_batch, output=output,
+                ),
+            )
+        else:
+            model = self.model(family_name)
+            program = self._cached_program(
+                ("sr_tiled", family_name, tile, overlap, tile_batch, output),
+                lambda: build_sr_tiled_program(
+                    family_name, dtype=self.dtype, tile=tile, overlap=overlap, tile_batch=tile_batch,
+                    output=output,
+                ),
+            )
         get_counters().inc(f"sr_tiled_calls.{size}")
         canvas = self._to_device(canvas_u8)
         return self._run_sync(
             f"sr_tiled/{family_name}/{size}t{tile}",
             lambda: program(model, canvas), family_name, tile=tile, overlap=overlap,
         )
+
+    def sr_spatial(self, canvas_u8: np.ndarray, family_name: str = "sr-x2") -> tuple[np.ndarray, dict]:
+        """Super-resolve ONE [H,W,3] u8 canvas row-sharded over the mesh's
+        spatial slots, a one-row halo exchanged at every convolution
+        (parallel/halo.py), the limiter run on the gathered canvas. Rows are
+        padded by repeating the last one to a multiple of the spatial size
+        and the output cropped back: the result is the single-device
+        forward of the padded canvas, cropped, up to convolution round-off.
+        meta adds ``spatialShards``, ``halo`` (the receptive field in input
+        rows) and ``paddedRows``."""
+        from .programs import build_sr_spatial_program
+
+        if self.mesh is None or self.mesh.shape[AXIS_SPATIAL] <= 1:
+            raise ValueError("sr_spatial requires a mesh with a spatial axis > 1")
+        program, halo, scale, sp = self._cached_program(
+            ("sr_spatial", family_name),
+            lambda: build_sr_spatial_program(family_name, dtype=self.dtype, mesh=self.mesh),
+        )
+        h_in = canvas_u8.shape[0]
+        pad_rows = (-h_in) % sp
+        if pad_rows:
+            canvas_u8 = np.concatenate([canvas_u8, np.repeat(canvas_u8[-1:], pad_rows, axis=0)], axis=0)
+        h = canvas_u8.shape[0]
+        models = self._spatial_replicas(family_name)
+        get_counters().inc(f"sr_spatial_calls.{h}")
+        canvas = self._to_device(canvas_u8)
+        out, meta = self._run_sync(
+            f"sr_spatial/{family_name}/{h}", lambda: program(models, canvas), family_name,
+            spatialShards=sp, halo=halo, paddedRows=pad_rows,
+        )
+        return (out[: h_in * scale] if pad_rows else out), meta
 
     def warmup(self, family_name="restore-unet", sizes=None, batches=None) -> float:
         """Run the restore programs once per serving bucket (serve/warmup.py)."""

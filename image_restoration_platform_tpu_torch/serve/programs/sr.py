@@ -1,21 +1,36 @@
-"""Tiled super-resolution program.
+"""Tiled and row-sharded super-resolution programs.
 
-Counterpart of the single-device program of
-image_restoration_platform_tpu/serve/programs/sr.py
-(``build_sr_tiled_program``): tile extraction, batched SRNet calls over tile
-chunks and the windowed fold all run on the device, with no host round trip
-between tiles. The residual limiter runs per tile, inside the model, as in
-the reference. The mesh and row-sharded programs of that file belong to the
-multi-device serving surfaces and are not part of this module yet.
+Counterpart of image_restoration_platform_tpu/serve/programs/sr.py:
+
+- ``build_sr_tiled_program``: tile extraction, batched SRNet calls over tile
+  chunks and the windowed fold all run on the device, with no host round
+  trip between tiles. The residual limiter runs per tile, inside the model,
+  as in the reference;
+- ``build_sr_tiled_mesh_program``: the same with the tile axis split over
+  the mesh's data slots; the tiles come back to the first slot, where the
+  blend kernel runs once;
+- ``build_sr_spatial_program``: ONE canvas split by rows over the spatial
+  slots, every convolution exchanging a one-row halo; the limiter runs once
+  on the gathered canvas.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...models import get_family
-from ...ops.tile import tiled_apply
+from ...models import get_family, srnet
+from ...ops.tile import tile_image, tiled_apply
+from ...parallel.halo import spatial_shard_model_apply
+from ...parallel.mesh import AXIS_SPATIAL
+from ...parallel.sharding import gather, split_batch
 from .egress import to_yuv420
+
+
+def _emit(out: torch.Tensor, output: str):
+    """The f32 [H, W, 3] canvas as RGB u8, or its (Y, Cb, Cr) u8 planes."""
+    if output == "yuv420":
+        return tuple(p[0] for p in to_yuv420(out[None]))
+    return torch.round(torch.clamp(out, 0.0, 255.0)).to(torch.uint8)
 
 
 def build_sr_tiled_program(
@@ -37,8 +52,78 @@ def build_sr_tiled_program(
             out = tiled_apply(
                 canvas.float(), per_tiles, tile=tile, overlap=overlap, scale=scale, tile_batch=tile_batch,
             )
-            if output == "yuv420":
-                return tuple(p[0] for p in to_yuv420(out[None]))
-            return torch.round(torch.clamp(out, 0.0, 255.0)).to(torch.uint8)
+            return _emit(out, output)
 
     return program
+
+
+def build_sr_tiled_mesh_program(
+    family_name: str, *, dtype: torch.dtype, slots: list, tile: int, overlap: int, tile_batch: int, output: str,
+):
+    """``fn(models, canvas [H,W,3] u8)``, ``models`` the network on each of
+    the data ``slots`` and the canvas on the first: the tiles are cut on the
+    first slot and taken in chunks of ``tile_batch`` x the data size (the
+    last filled by repeating the last tile), each chunk split evenly over
+    the slots; the restored tiles are gathered on the first slot and blended
+    there in one launch. Each slot sees chunks of ``tile_batch`` tiles, as
+    the single-device program does, so the output is the same."""
+    from ...ops.cuda.blend import blend_tiles
+
+    if output not in ("rgb", "yuv420"):
+        raise ValueError(f"unknown output {output!r}")
+    scale = get_family(family_name).config.scale
+    dp = len(slots)
+    mesh_chunk = tile_batch * dp
+
+    def program(models, canvas):
+        with torch.inference_mode():
+            h, w, _ = canvas.shape
+            tiles, ys, xs = tile_image(canvas.float(), tile, overlap)
+            n = tiles.shape[0]
+            pad = (-n) % mesh_chunk if n > mesh_chunk else (-n) % dp
+            if pad:
+                tiles = torch.cat([tiles, tiles[-1:].expand(pad, -1, -1, -1)], dim=0)
+            step = min(mesh_chunk, tiles.shape[0])
+            chunks = []
+            for i in range(0, tiles.shape[0], step):
+                shards = split_batch(tiles[i : i + step], slots)
+                outs = [m(t.to(dtype) / 255.0).float() * 255.0 for m, t in zip(models, shards)]
+                chunks.append(gather(outs, slots[0]))
+            out_tiles = torch.cat(chunks, dim=0)[:n].contiguous()
+            out = blend_tiles(
+                out_tiles, (h * scale, w * scale), tuple(y * scale for y in ys), tuple(x * scale for x in xs)
+            )
+            return _emit(out, output)
+
+    return program
+
+
+def build_sr_spatial_program(family_name: str, *, dtype: torch.dtype, mesh):
+    """(``fn(models, canvas [H,W,3] u8)``, receptive halo, scale, spatial
+    size): ``models`` the network on each spatial slot, H a multiple of the
+    spatial size. Row blocks run ``srnet.apply_rowsharded`` (the unlimited
+    network, a halo row exchanged at every convolution), the canvas is
+    gathered on the first slot, and ``residual_limit`` runs on it whole:
+    the limiter is local in (input, output), so the result is the
+    single-device forward's up to convolution round-off. (The reference
+    feeds its limiter here the f32 input, which its single-device forward
+    never sees in bf16; this program feeds the input in the compute type.)"""
+    cfg = get_family(family_name).config
+
+    def local_fn(models, blocks):
+        outs = srnet.apply_rowsharded(models, [b.to(dtype) / 255.0 for b in blocks])
+        return [o.float() * 255.0 for o in outs]
+
+    sharded_apply = spatial_shard_model_apply(local_fn, mesh)
+
+    def program(models, canvas):
+        with torch.inference_mode():
+            canvas_f = canvas.float()[None]
+            out = sharded_apply(models, canvas_f)
+            if cfg.limit_pool > 0:
+                # the limiter reads the input as the network did, in the
+                # compute type, as the single-device forward's limiter does
+                out = srnet.residual_limit(canvas_f.to(dtype) / 255.0, out / 255.0, cfg) * 255.0
+            return _emit(out[0], "rgb")
+
+    return program, srnet.receptive_halo(cfg), cfg.scale, mesh.shape[AXIS_SPATIAL]

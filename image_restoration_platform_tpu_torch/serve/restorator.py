@@ -12,7 +12,11 @@ failed stage.
 A 16-bit PNG upload takes the HDR deblur pre-pass (``SERVE_HDR_DEBLUR``,
 ``_hdr_prepass``) where the native codec exists; without it such an upload
 is served on the 8-bit path, as in the reference. ``estimatedCostUsd`` is
-not reported: the reference's rate is a TPU price.
+the request's device seconds at ``ServingConfig.device_cost_per_hour_usd``
+(the card's price), and ``restore`` also adds it to the ``tpu_cost_usd``
+counter, under the reference's names. With a mesh whose spatial axis is
+larger than 1, a huge super-resolution canvas is row-sharded
+(``engine.sr_spatial``) instead of tiled.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..models import get_family
 from ..obs.metrics import get_counters
 from ..obs.tracing import get_tracer
 from ..ops.resize import fit_inside
+from ..parallel.mesh import AXIS_SPATIAL
 from ..prompt import PromptEnhancerService
 from ..utils.logging import get_logger
 from .engine import RestorationEngine, resolve_device
@@ -82,6 +87,9 @@ class RestoratorService:
         self.batcher = batcher  # optional continuous micro-batcher (serve/batcher.py)
         self.logger = logger or get_logger("restorator")
         self._tracer = get_tracer("restorator")
+
+    def _cost_usd(self, device_s: float) -> float:
+        return device_s * self.config.device_cost_per_hour_usd / 3600.0
 
     # ------------------------------------------------------ size bucketing
 
@@ -253,6 +261,7 @@ class RestoratorService:
                 counters = get_counters()
                 counters.inc("restorations_total")
                 counters.inc("device_seconds_restore", device_s)
+                counters.inc("tpu_cost_usd", self._cost_usd(device_s))
                 if yuv_planes is not None:
                     jpeg_out = imageio.encode_jpeg_ycbcr420(*yuv_planes, quality=85)
                 else:
@@ -265,6 +274,7 @@ class RestoratorService:
                     "timings": timings,
                     "metadata": {
                         "providerRequestId": engine_meta.get("engineRequestId"),
+                        "estimatedCostUsd": round(self._cost_usd(device_s), 8),
                         "billedTokens": None,
                         "deviceSeconds": device_s,
                         "fetchSeconds": engine_meta.get("fetchSeconds"),
@@ -309,19 +319,26 @@ class RestoratorService:
 
     SR_TILE_THRESHOLD = 512  # above this bucket, tile + overlap-blend
 
+    def _spatial_shards(self) -> int:
+        mesh = self.engine.mesh
+        return 1 if mesh is None else int(mesh.shape[AXIS_SPATIAL])
+
     def _restore_sr(self, pixels, fmt, family, timings, start, span) -> dict:
-        """Super-resolution: direct SRNet for small inputs, tiled
-        overlap-blend for large ones."""
+        """Super-resolution: direct SRNet for small inputs; for large ones
+        the row-sharded program on a mesh with a spatial axis, else tiled
+        overlap-blend."""
         scale = get_family(family).config.scale
         h, w = pixels.shape[:2]
         t = time.perf_counter()
         canvas, (sh, sw), bucket = self._canonicalize_sr(pixels)
         yuv_planes = None
-        # (the reference row-shards the canvas here when its mesh has a
-        # spatial axis; that branch comes with parallel/)
         if bucket <= self.SR_TILE_THRESHOLD:
             out_batch, engine_meta = self.engine.sr_batch(canvas[None], family)
             out_canvas = out_batch[0]
+        elif self._spatial_shards() > 1:
+            # one canvas row-sharded over the spatial slots, a one-row halo
+            # exchanged at every convolution
+            out_canvas, engine_meta = self.engine.sr_spatial(canvas, family)
         elif (sh, sw) == (h, w) and imageio.native_available():
             # huge-canvas egress: the device emits YCbCr 4:2:0 planes (1.5
             # B/px instead of 3) and the native encoder consumes them raw;
@@ -354,6 +371,7 @@ class RestoratorService:
             "timings": timings,
             "metadata": {
                 "providerRequestId": engine_meta.get("engineRequestId"),
+                "estimatedCostUsd": round(self._cost_usd(device_s), 8),
                 "billedTokens": None,
                 "deviceSeconds": device_s,
                 "fetchSeconds": engine_meta.get("fetchSeconds"),
@@ -458,6 +476,7 @@ class RestoratorService:
                     "timings": timings,
                     "metadata": {
                         "providerRequestId": engine_meta.get("engineRequestId"),
+                        "estimatedCostUsd": round(self._cost_usd(device_s), 8),
                         "billedTokens": None,
                         "deviceSeconds": device_s,
                         "fetchSeconds": engine_meta.get("fetchSeconds"),

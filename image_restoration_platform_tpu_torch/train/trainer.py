@@ -20,8 +20,22 @@ Counterpart of image_restoration_platform_tpu/train/trainer.py on one card:
   noise of step k from a generator seeded from (``seed + 77``, k) or
   (``seed + 177``, k) for the sampler, like the reference's ``fold_in``;
 - checkpoints: ``torch.save`` of params, optimizer state, step and the data
-  stream in place of orbax. Sharding (the reference's mesh argument) waits
-  for the port of ``parallel/``.
+  stream in place of orbax;
+- ``mesh`` (parallel/mesh.py): every data slot runs the forward and the
+  backward on its shard of the batch with a replica of the model
+  (column-parallel over its tensor slots when the tensor axis is larger than
+  1); the outputs are gathered on the first slot, where the loss is computed
+  over the whole batch, so one mesh step is the unsharded step whatever the
+  loss's form. A slot on the model's own device with a tensor axis of 1
+  runs the model itself, and autograd adds its shard's gradients into the
+  model's; the gradients of the other replicas are added to them on the
+  first slot. The model alone holds the optimizer; the clip and AdamW run
+  there and the updated parameters are copied back to the other replicas. When a process
+  group is up (``parallel.mesh.maybe_initialize_distributed``), the data
+  axis also spans the processes: every process draws the same batch and
+  runs its own part, the outputs are exchanged (``all_gather``) so every
+  process computes the same loss, and the summed gradients are
+  ``all_reduce``d before the clip.
 """
 
 from __future__ import annotations
@@ -39,7 +53,10 @@ from ..models import diffusion as diff_mod
 from ..models import get_family
 from ..models import weights as weights_mod
 from ..models.diffusion import DiffusionConfig
+from ..models.registry import check_attention_shapes
 from ..models.srnet import SRNet, SRNetConfig
+from ..parallel.mesh import AXIS_DATA, process_span
+from ..parallel.sharding import gather_state, scatter_state_, shard_params
 from ..serve.engine import resolve_device
 from ..utils.logging import get_logger
 from .data import DataConfig, synthetic_batch
@@ -148,11 +165,15 @@ def _step_generator(gen: torch.Generator, base: int, step: int) -> torch.Generat
 
 @dataclass
 class TrainState:
-    """The model (f32 parameters), its optimizer, and the steps taken."""
+    """The model (f32 parameters), its optimizer, and the steps taken; under
+    a mesh also the model's replica on each data row and each row's first
+    slot (``homes``), where its shard of the batch goes."""
 
     model: torch.nn.Module
     optimizer: torch.optim.AdamW
     step: int = 0
+    replicas: list | None = None
+    homes: list | None = None
 
 
 class TrainStep:
@@ -189,15 +210,13 @@ class TrainStep:
         model = self.build_model()
         return TrainState(model, make_optimizer(self.cfg, model.parameters()), 0)
 
-    def loss(self, model, degraded, clean, cond, anchor, step: int = 0, draws: dict | None = None):
+    def _inputs(self, degraded, clean, cond, step: int, draws: dict | None):
+        """The model's per-example inputs for the whole batch (each with the
+        batch on dim 0) and what the objective needs besides the output."""
         cfg, dt = self.cfg, self.cfg.compute_dtype
         if self.is_diffusion and cfg.diffusion_sampler_steps > 0:
-            # sampler-aware: run the K-step DDIM restore with autograd on and
-            # regress the final image on clean
-            scfg = dataclasses.replace(self.model_cfg, sample_steps=cfg.diffusion_sampler_steps)
             noise = draws["noise"] if draws else _step_generator(self._noise_gen, cfg.seed + 177, step)
-            pred = diff_mod.restore(model, degraded.to(dt), cond.to(dt), noise, scfg).float()
-            return charbonnier(pred, clean, cfg.charbonnier_eps) + cfg.grad_loss_weight * gradient_loss(pred, clean)
+            return (degraded.to(dt), cond.to(dt), noise), {}
         if self.is_diffusion:
             # denoising loss: noise the clean image, condition on the
             # degraded one (3 extra channels) and its degradation profile
@@ -211,25 +230,83 @@ class TrainStep:
                 t_frac = torch.rand((n,), generator=gen, device=clean.device)
                 eps = torch.randn(x0.shape, generator=gen, device=clean.device)
             xt = diff_mod.add_noise(x0, eps, t_frac)
-            out = model(torch.cat([xt, x_cond], dim=-1).to(dt), cond.to(dt), t=t_frac * self.model_cfg.timesteps)
-            if self.model_cfg.parameterization == "x0":
-                return torch.mean((out.float() - x0) ** 2)
-            return torch.mean((out.float() - xt - eps) ** 2)
+            x_in = torch.cat([xt, x_cond], dim=-1).to(dt)
+            return (x_in, cond.to(dt), t_frac * self.model_cfg.timesteps), {"x0": x0, "xt": xt, "eps": eps}
         if self.is_sr:
             # low-res = box-downsampled degraded image, target = clean
             s = self.model_cfg.scale
             n, h, w, c = degraded.shape
             lr = degraded.reshape(n, h // s, s, w // s, s, c).mean(dim=(2, 4))
-            pred = model(lr.to(dt)).float()
+            return (lr.to(dt),), {}
+        return (degraded.to(dt), cond.to(dt)), {}
+
+    def _forward(self, model, *inputs) -> torch.Tensor:
+        if self.is_diffusion and self.cfg.diffusion_sampler_steps > 0:
+            # sampler-aware: the K-step DDIM restore with autograd on
+            scfg = dataclasses.replace(self.model_cfg, sample_steps=self.cfg.diffusion_sampler_steps)
+            return diff_mod.restore(model, *inputs, scfg)
+        if self.is_diffusion:
+            x_in, c, t = inputs
+            return model(x_in, c, t=t)
+        if self.cfg.remat and not self.is_sr:
+            return checkpoint(model, *inputs, use_reentrant=False)
+        return model(*inputs)
+
+    def _objective(self, out, degraded, clean, anchor, aux: dict) -> torch.Tensor:
+        """The loss of the whole batch's model output."""
+        cfg = self.cfg
+        if (self.is_diffusion and cfg.diffusion_sampler_steps > 0) or self.is_sr:
+            # regress the final image on clean
+            pred = out.float()
             return charbonnier(pred, clean, cfg.charbonnier_eps) + cfg.grad_loss_weight * gradient_loss(pred, clean)
-        x, c = degraded.to(dt), cond.to(dt)
-        pred = (checkpoint(model, x, c, use_reentrant=False) if cfg.remat else model(x, c)).float()
+        if self.is_diffusion:
+            if self.model_cfg.parameterization == "x0":
+                return torch.mean((out.float() - aux["x0"]) ** 2)
+            return torch.mean((out.float() - aux["xt"] - aux["eps"]) ** 2)
+        pred = out.float()
         loss = identity_weighted_charbonnier(pred, clean, degraded, cfg.charbonnier_eps, cfg.identity_weight)
         if cfg.anchor_comp > 0.0:
             # identity anchor on compression-only rows: a pull toward the INPUT
             per_ex = torch.mean(torch.sqrt((pred - degraded) ** 2 + cfg.charbonnier_eps**2), dim=(1, 2, 3))
             loss = loss + cfg.anchor_comp * torch.sum(anchor * per_ex) / torch.clamp(torch.sum(anchor), min=1.0)
         return loss + cfg.grad_loss_weight * gradient_loss(pred, clean)
+
+    def loss(self, model, degraded, clean, cond, anchor, step: int = 0, draws: dict | None = None):
+        """The reference's ``loss_fn`` of one batch."""
+        inputs, aux = self._inputs(degraded, clean, cond, step, draws)
+        return self._objective(self._forward(model, *inputs), degraded, clean, anchor, aux)
+
+    def replicate(self, state: TrainState, mesh) -> None:
+        """Give ``state`` a replica of its model on every data row of
+        ``mesh`` (column-parallel over the row's tensor slots; the model
+        itself on a row whose one slot is the model's device)."""
+        state.replicas = [shard_params(state.model, mesh, i) for i in range(mesh.shape[AXIS_DATA])]
+        state.homes = [mesh.tensor_slots(i)[0] for i in range(mesh.shape[AXIS_DATA])]
+
+    def _mesh_loss(self, state: TrainState, degraded, clean, cond, anchor, draws: dict | None):
+        """The loss of the whole batch with every data slot running its
+        shard: the slots' outputs are gathered on this process's first slot
+        (and across processes, where this process's part keeps its graph)."""
+        inputs, aux = self._inputs(degraded, clean, cond, state.step, draws)
+        processes, rank = process_span()
+        dp = len(state.replicas)
+        n = inputs[0].shape[0]
+        if n % (dp * processes):
+            raise ValueError(f"batch {n} not divisible by {dp} data slots x {processes} processes")
+        per = n // (dp * processes)
+        outs = []
+        for i, (replica, home) in enumerate(zip(state.replicas, state.homes)):
+            lo = (rank * dp + i) * per
+            outs.append(self._forward(replica, *(a[lo : lo + per].to(home) for a in inputs)).to(self.device))
+        out = torch.cat(outs, dim=0)
+        if processes > 1:
+            import torch.distributed as dist
+
+            parts = [torch.empty_like(out) for _ in range(processes)]
+            dist.all_gather(parts, out.detach().contiguous())
+            parts[rank] = out
+            out = torch.cat(parts, dim=0)
+        return self._objective(out, degraded, clean, anchor, aux)
 
     def __call__(self, state: TrainState, degraded, clean, cond, anchor, draws: dict | None = None) -> torch.Tensor:
         """One step: loss, gradients, global-norm clip, AdamW at the
@@ -238,15 +315,49 @@ class TrainStep:
         for group in state.optimizer.param_groups:
             group["lr"] = self.schedule(state.step)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(state.model, degraded, clean, cond, anchor, state.step, draws)
-        loss.backward()
+        if state.replicas is None:
+            loss = self.loss(state.model, degraded, clean, cond, anchor, state.step, draws)
+            loss.backward()
+        else:
+            copies = [r for r in state.replicas if r is not state.model]
+            for replica in copies:
+                replica.zero_grad(set_to_none=True)
+            loss = self._mesh_loss(state, degraded, clean, cond, anchor, draws)
+            loss.backward()
+            # the loss is the whole batch's, so each replica holds its
+            # shard's part of the gradient: the copies' parts are added to
+            # what the slots running the model itself left in it
+            grads = [gather_state(r, self.device, grads=True) for r in copies]
+            for name, p in state.model.named_parameters():
+                parts = [g[name] for g in grads] + ([] if p.grad is None else [p.grad])
+                if parts:
+                    p.grad = sum(parts)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if state.replicas is not None and process_span()[0] > 1:
+            import torch.distributed as dist
+
+            flat = torch.cat([p.grad.reshape(-1) for p in params])
+            dist.all_reduce(flat)
+            offset = 0
+            for p in params:
+                p.grad.copy_(flat[offset : offset + p.numel()].view_as(p))
+                offset += p.numel()
         clip_by_global_norm_([p.grad for p in params])
         state.optimizer.step()
         state.step += 1
+        self.sync_replicas(state)
         return loss.detach()
+
+    @staticmethod
+    def sync_replicas(state: TrainState) -> None:
+        """Copy the model's parameters into its replicas that are copies."""
+        if state.replicas is not None:
+            master = dict(state.model.named_parameters())
+            for replica in state.replicas:
+                if replica is not state.model:
+                    scatter_state_(replica, master)
 
 
 def make_train_step(cfg: TrainConfig, device: str | torch.device = "cuda"):
@@ -260,13 +371,24 @@ class Trainer:
     def __init__(
         self,
         cfg: TrainConfig = TrainConfig(),
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
         checkpoint_dir: str | None = None,
         warm_start: bool = False,
+        mesh=None,
     ):
+        """``device`` defaults to "cuda", or with a ``mesh`` to its first
+        slot, which holds the f32 model and the optimizer."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.primary.type:
+                raise ValueError(f"trainer device {device} is not on the mesh's slots ({mesh.primary})")
+            device = mesh.primary
+        self.mesh = mesh
+        self.device = resolve_device("cuda" if device is None else device)
         self.logger = get_logger("trainer")
+        if self.device.type == "cuda":
+            per_slot = cfg.batch_size // (mesh.shape[AXIS_DATA] if mesh is not None else 1)
+            check_attention_shapes(cfg.family, (cfg.image_size,), max(per_slot, 1), cfg.compute_dtype)
         self.step_fn, self._init = make_train_step(cfg, self.device)
         self.state = self._init()
         if warm_start:
@@ -275,6 +397,8 @@ class Trainer:
             if os.path.exists(path):
                 self.state.model.load_state_dict(weights_mod.load_state_dict(path), strict=True)
                 self.logger.info("warm-started from weights", {"path": path})
+        if mesh is not None and mesh.size > 1:
+            self.step_fn.replicate(self.state, mesh)
         self.checkpoint_dir = checkpoint_dir
         photo = dict(
             photo=cfg.data_photo, grain=cfg.data_grain, smooth=cfg.data_smooth, smooth_share=cfg.data_smooth_share,
@@ -364,6 +488,7 @@ class Trainer:
         self.state.model.load_state_dict(saved["params"], strict=True)
         self.state.optimizer.load_state_dict(saved["opt_state"])
         self.state.step = int(saved["step"])
+        self.step_fn.sync_replicas(self.state)
         self._data_gen.set_state(saved["data"]["rng"])
         self._mix_acc = float(saved["data"]["mix_acc"])
         self._mix_acc_mild = float(saved["data"]["mix_acc_mild"])

@@ -6,8 +6,8 @@ queue worker) and see the same requests in the same order. The JAX engine
 computes in f32 at ``precision=HIGHEST`` (set for this module and restored
 after it), the port's engine in f32. Bars: same status codes, the same
 problem+json type, title and detail, the same body keys (a job result's
-metadata without ``estimatedCostUsd``, which the port does not report),
-scores within 1e-4, the same prompt text, and decoded restored pixels within
+metadata included; the admin analytics body holds every key of the
+reference's, ``tpu`` among them), scores within 1e-4, the same prompt text, and decoded restored pixels within
 mean 0.5 and max 4 levels.
 
 A 16-bit PNG upload is re-encoded to an 8-bit JPEG by the upload preprocess
@@ -105,7 +105,7 @@ def _assert_results_match(ref, port):
     """Two restore results: keys, scores, prompt, decoded pixels."""
     assert ref["success"] is True and port["success"] is True, (ref.get("error"), port.get("error"))
     assert set(port) == set(ref)
-    assert set(port["metadata"]) == set(ref["metadata"]) - {"estimatedCostUsd"}
+    assert set(port["metadata"]) == set(ref["metadata"])
     assert set(port["timings"]) == set(ref["timings"])
     assert port["metadata"]["sizeBucket"] == ref["metadata"]["sizeBucket"]
     assert port["metadata"]["model"] == ref["metadata"]["model"]
@@ -323,11 +323,11 @@ def test_uploads_webhook_console_metrics_and_admin(contexts, monkeypatch, tmp_pa
         return out
 
     ref, port = both(contexts, scenario)
-    # the port reports device seconds under "device", the reference under "tpu"
+    # every key of the reference's body is in the port's (the port adds "device")
     ref_keys = ref.pop("analytics")
     port_keys = port.pop("analytics")
     assert port_keys[0] == ref_keys[0] == 200
-    assert port_keys[1] == sorted("device" if k == "tpu" else k for k in ref_keys[1]) and port_keys[2:] == ref_keys[2:]
+    assert set(ref_keys[1]) <= set(port_keys[1]) and "tpu" in port_keys[1] and port_keys[2:] == ref_keys[2:]
     assert port == ref
     assert ref["upload"][1] == 200 and ref["upload"][3] == 200 and ref["webhook"][0] == 503
     assert ref["probe"] == (200, {"mode": "cpu", "ok": True}) and ref["grant"][0] == 200

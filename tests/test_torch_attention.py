@@ -169,6 +169,13 @@ def test_launch_plan_of_the_paths_shapes(shape, dtype):
         # 128-key stages), and of 1024 keys (all heads on 192-query blocks)
         ((32, 4, 256, 64), "bfloat16"): ("wgmma_q192", 192, 128, 2, 512, 4),
         ((32, 4, 1024, 64), "bfloat16"): ("wgmma_q192", 192, 128, 4, 512, 128),
+        # the mesh paths' shards: 8 and 4 heads of 4096 keys all on 128-query
+        # blocks (their last wave ends sooner than with 192-query blocks), 16
+        # heads with 12 on 192-query blocks; the f32 train check's slot
+        ((2, 4, 4096, 64), "bfloat16"): ("wgmma_q192", 192, 128, 4, 512, 0),
+        ((1, 4, 4096, 64), "bfloat16"): ("wgmma_q192", 192, 128, 4, 512, 0),
+        ((4, 4, 4096, 64), "bfloat16"): ("wgmma_q192", 192, 128, 4, 512, 12),
+        ((4, 4, 256, 64), "float32"): ("simt_f32", 32, 64, 2, 128, 16),
     }[(shape, dtype)]
     assert (plan.variant, plan.block_q, plan.block_k, plan.stages, plan.threads, plan.full_heads) == expected
     assert plan.variant in A.VARIANTS and 0 <= plan.shared_bytes <= 232_448

@@ -100,7 +100,7 @@ def test_restore_fusion_contract_matches_reference(services):
     got = svc.restore_fusion([imageio.encode_png(i) for i in images], "fuse these", options=options)
     assert ref["success"] is True and got["success"] is True, got.get("error")
     assert set(got) == set(ref)
-    assert set(got["metadata"]) == set(ref["metadata"]) - {"estimatedCostUsd"}
+    assert set(got["metadata"]) == set(ref["metadata"])
     assert set(got["timings"]) == set(ref["timings"])
     meta = got["metadata"]
     assert meta["fusionInputs"] == 3 and meta["sizeBucket"] == 64 and meta["model"] == FAMILY

@@ -37,9 +37,10 @@ print(" ".join(n[len("{PORT}."):] for n in names))
 """
 
 # the modules of the super-resolution, diffusion and fusion slice, of the
-# HTTP service with its host services, the device classifier and resize, and
-# of the trainer
+# HTTP service with its host services, the device classifier and resize, of
+# the trainer, and of the meshes
 NEW_MODULES = {
+    "parallel", "parallel.mesh", "parallel.sharding", "parallel.halo", "parallel.pipeline",
     "train", "train.__main__", "train.data", "train.ood", "train.realphoto", "train.trainer",
     "models.srnet", "models.diffusion", "ops.tile", "ops.cuda.blend", "serve.programs.sr", "serve.programs.fusion",
     "api", "api.app", "api.auth", "api.context", "api.middleware", "api.routes", "api.submit", "classify.classifier",
@@ -72,7 +73,7 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0, out.stderr
     first, modules = out.stdout.strip().splitlines()
     count, leaked = first.split(" ", 1)
-    assert int(count) >= 67  # every module of the port was imported
+    assert int(count) >= 72  # every module of the port was imported
     assert NEW_MODULES <= set(modules.split())
     assert leaked == "[]"
 

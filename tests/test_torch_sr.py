@@ -171,8 +171,7 @@ def test_restorator_sr_contract_matches_reference(services):
     got = svc.restore(imageio.encode_png(img), options={"model": "sr-x2"})
     assert ref["success"] is True and got["success"] is True, got.get("error")
     assert set(got) == set(ref)
-    # the card's rate is not chosen yet, so the port reports no cost
-    assert set(got["metadata"]) == set(ref["metadata"]) - {"estimatedCostUsd"}
+    assert set(got["metadata"]) == set(ref["metadata"])
     for key in ("model", "scaleFactor", "outputSize", "sizeBucket", "classificationIssues", "billedTokens"):
         assert got["metadata"][key] == ref["metadata"][key], key
     assert got["metadata"]["scaleFactor"] == 2 and got["metadata"]["outputSize"] == [96, 80]
