@@ -84,7 +84,19 @@ failure (exit code 1):
    ``unet_pipeline_apply`` on data=2 x pipe=2 at 512 with 4 microbatches; two
    ``Trainer`` steps on data=2 against two unsharded steps (f32); and
    ``maybe_initialize_distributed`` with one rank on NCCL and one
-   ``all_reduce``.
+   ``all_reduce``;
+8. quality and bench: the quality gates of tests/test_quality*.py
+   (eval/gates.py) on the card in bf16 with the shipped weights, the
+   attention kernel's count set to 0 before and read after (one launch per
+   UNet forward at 128 px): the OOD gates (six classes at seed 2026, n 8,
+   128 px; motion's per-image mean; clean harm at seed 2027), each class's
+   card gain within 0.2 dB of the port's CPU bf16 run on the same inputs;
+   the in-distribution gates (flagship, near-clean, sr-x2 and sr-x4 over
+   nearest, smooth no-hallucination, diffusion) on the port's own
+   ``synthetic_batch`` draws at the gate seeds, made on the CPU; then
+   ``python -m image_restoration_platform_tpu_torch.bench`` in a subprocess:
+   its headline parses, with a positive value, ``mfu`` in (0, 1], the
+   validity stamp VALID, and attention and blend launches in its run.
 
 Phase 2 also holds the kernel at the training shapes ([32, 4, 256, 64] and
 [32, 4, 1024, 64] bf16) and checks the gradients through ``FlashAttention``
@@ -92,9 +104,9 @@ Phase 2 also holds the kernel at the training shapes ([32, 4, 256, 64] and
 plain forward at [32, 4, 256, 64].
 
 ``--report PATH`` also writes the full report as JSON to PATH;
-``--kernels-only`` stops after phase 2 (a quick check of a changed kernel)
-and ``--mesh-only`` runs phase 7 alone after the builds; both print no
-result lines and exit 0 or 1. The last
+``--kernels-only`` stops after phase 2 (a quick check of a changed kernel),
+and ``--mesh-only`` and ``--quality-only`` run phase 7 or phase 8 alone
+after the builds; they print no result lines and exit 0 or 1. The last
 lines of standard output are the card line, the kernels JSON line, and
 {"ok": true, "device": {...}}.
 """
@@ -118,10 +130,6 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "image_restoration_platform_tpu_torch"
 
-# H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-HBM_BYTES_PER_S = 3.35e12
-
 KERNEL_SHAPES = [  # (shape [N,H,T,D], dtype, where the path uses it)
     ((1, 4, 1024, 64), "bfloat16", "restore-unet 256 b1"),
     ((8, 4, 4096, 64), "bfloat16", "restore-unet 512 b8"),
@@ -133,8 +141,11 @@ KERNEL_SHAPES = [  # (shape [N,H,T,D], dtype, where the path uses it)
     ((32, 4, 1024, 64), "bfloat16", "training diffusion-restore 128 b32"),
     ((2, 4, 4096, 64), "bfloat16", "mesh restore-unet 512 b8 on data=4: one slot's shard"),
     ((4, 4, 4096, 64), "bfloat16", "mesh restore-unet 512 b8 on data=2 x tensor=2: one slot's shard"),
-    ((1, 4, 4096, 64), "bfloat16", "unet_pipeline_apply 512 b8, data=2 x pipe=2: one microbatch of a data row"),
+    ((1, 4, 4096, 64), "bfloat16", "unet_pipeline_apply 512 b8, data=2 x pipe=2: one microbatch of a data row; "
+                                    "bench single 512 requests"),
     ((4, 4, 256, 64), "float32", "mesh train step 128 b8 on data=2 (the f32 check): one slot's shard"),
+    ((8, 4, 256, 64), "bfloat16", "quality gates: restore-unet 128 b8"),
+    ((8, 4, 1024, 64), "bfloat16", "quality gates: diffusion-restore 128 b8"),
 ]
 # the gradient check: dq, dk, dv through FlashAttention (kernel forward, plain
 # backward) against autograd through the plain forward, at the training shape
@@ -354,6 +365,8 @@ def time_ms(torch, fn, groups: int = 20, calls: int = 10, warmup: int = 3) -> fl
 
 
 def attention_bound_ms(shape, dtype: str) -> tuple[float, str]:
+    from image_restoration_platform_tpu_torch.utils.peaks import HBM_BYTES_PER_S, PEAK_FLOPS
+
     n, h, t, d = shape
     nbytes = 4 * n * h * t * d * (2 if dtype == "bfloat16" else 4)  # q, k, v read; o written
     flops = 4 * n * h * t * t * d  # Q K^T and P V
@@ -362,6 +375,8 @@ def attention_bound_ms(shape, dtype: str) -> tuple[float, str]:
 
 
 def blend_bound_ms(n_tiles: int, t: int, c: int, out_h: int, out_w: int) -> tuple[float, str]:
+    from image_restoration_platform_tpu_torch.utils.peaks import HBM_BYTES_PER_S, PEAK_FLOPS
+
     nbytes = 4 * (n_tiles * t * t * c + out_h * out_w * c)  # tiles read, canvas written, f32
     flops = 3 * n_tiles * t * t * c  # multiply, add, and the window sum
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
@@ -1590,6 +1605,114 @@ def phase_mesh(torch, np, report, card):
     return launches
 
 
+# the quality and bench phase: every gate value of the card's bf16 run held
+# to the port's CPU bf16 run on the same inputs. The bars are ~10x the gaps
+# read on the card (NVIDIA H100 80GB HBM3, 700 W): OOD gains within 0.0014 dB,
+# in-distribution gains and PSNRs within 0.0082 dB, MADs and Laplacian
+# energies within 0.0011 levels of 255.
+QUALITY_CPU_DB = {"ood": 0.02, "in_distribution": 0.1}
+QUALITY_CPU_LEVELS = 0.02
+QUALITY_FAMILIES = ("restore-unet", "sr-x2", "sr-x4", "diffusion-restore")
+BENCH_TIMEOUT_S = 600
+
+
+def _flat(values: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in values.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def quality_gaps(card: dict, cpu: dict, db_bar: float) -> dict:
+    """{value: (|card - cpu|, bar)} for every gate value of a report: the
+    MADs and Laplacian energies in levels, gains and PSNRs in dB."""
+    card, cpu = _flat(card), _flat(cpu)
+    return {k: (abs(card[k] - cpu[k]), QUALITY_CPU_LEVELS if k.endswith("_mad") or ".hf_" in k else db_bar)
+            for k in card}
+
+
+def phase_quality_bench(torch, np, report, card):
+    """The quality gates of tests/test_quality*.py on the card in bf16 with
+    the shipped weights (eval/gates.py), the attention kernel's launches
+    counted from 0: the OOD gates at their own seeds and sizes; the
+    in-distribution gates on the port's own draws at the gate seeds (made on
+    the CPU, so the CPU run sees the same numbers); every value of both
+    within its bar (QUALITY_CPU_DB, QUALITY_CPU_LEVELS) of the port's CPU
+    bf16 run on the same inputs; then the bench entry in a subprocess, whose
+    headline must parse with a positive value, an mfu in (0, 1], a VALID
+    stamp and both kernels launched."""
+    from image_restoration_platform_tpu_torch.eval import gates as G
+    from image_restoration_platform_tpu_torch.eval.common import load_model
+    from image_restoration_platform_tpu_torch.ops.cuda.attention import flash_kernel
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    out: dict = {"card": card}
+
+    def gates_on(device):
+        return {name: load_model(name, device, bf16) for name in QUALITY_FAMILIES}
+
+    card_models = gates_on("cuda")
+    forwards = [0]  # UNet forwards at 128 px: one attention launch each ([8, 4, 256, 64], diffusion [8, 4, 1024, 64])
+    hooks = [card_models[name].register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+             for name in ("restore-unet", "diffusion-restore")]
+    t = time.perf_counter()
+    _zero_launches(flash_kernel)
+    ood = G.ood_report("restore-unet", card_models["restore-unet"], bf16)
+    indist = G.in_distribution_report(card_models, bf16, "cuda")
+    launches = _read_launches("flash_attention", flash_kernel)
+    out["card_s"] = time.perf_counter() - t
+    for hook in hooks:
+        hook.remove()
+    t = time.perf_counter()
+    cpu_models = gates_on("cpu")
+    ood_cpu = G.ood_report("restore-unet", cpu_models["restore-unet"], bf16)
+    indist_cpu = G.in_distribution_report(cpu_models, bf16, "cpu")
+    out["cpu_s"] = time.perf_counter() - t
+    gaps = {**quality_gaps(ood, ood_cpu, QUALITY_CPU_DB["ood"]),
+            **quality_gaps(indist, indist_cpu, QUALITY_CPU_DB["in_distribution"])}
+    out.update(ood=ood, ood_cpu=ood_cpu, in_distribution=indist, in_distribution_cpu=indist_cpu,
+               card_vs_cpu={k: gap for k, (gap, _bar) in gaps.items()}, attention_launches=launches,
+               unet_forwards=forwards[0])
+    print(json.dumps({"quality": {k: out[k] for k in ("ood", "ood_cpu", "in_distribution", "in_distribution_cpu",
+                                                      "card_vs_cpu", "attention_launches", "unet_forwards",
+                                                      "card_s", "cpu_s")}}), flush=True)
+    failures = G.ood_failures(ood) + G.in_distribution_failures(indist)
+    check(not failures, f"quality gates missed on the card: {failures}")
+    off = {k: v for k, v in gaps.items() if not v[0] <= v[1]}
+    check(not off, f"card gate values off the CPU's by more than their bars (gap, bar): {off}")
+    check(forwards[0] > 0 and launches == forwards[0],
+          f"attention launches {launches} != UNet forwards {forwards[0]} in the quality gates")
+
+    # --- the bench entry, as a user runs it: one headline line on stdout
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench"], cwd=REPO, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    out["bench_s"] = time.perf_counter() - t
+    for line in proc.stderr.strip().splitlines()[-12:]:
+        print(f"  bench: {line}", flush=True)
+    check(proc.returncode == 0, f"bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    head = json.loads(proc.stdout.strip().splitlines()[-1])
+    detail = head["detail"]
+    out["bench"] = head
+    print(json.dumps({"bench": head}), flush=True)
+    check(head["metric"] == "images_per_sec_per_chip_512px_single_restore_e2e" and head["value"] > 0,
+          f"bench headline {head}")
+    check(detail["mfu"] is not None and 0.0 < detail["mfu"] <= 1.0, f"bench mfu {detail['mfu']}")
+    check(detail["validity"]["status"] == "VALID", f"bench validity {detail['validity']}")
+    check(detail["launches"]["flash_attention"] >= 1 and detail["launches"]["blend_tiles"] >= 1,
+          f"bench kernel launches {detail['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"quality_bench_phase": {k: out[k] for k in ("seconds", "card_s", "cpu_s", "bench_s")}}),
+          flush=True)
+    report["quality_bench"] = out
+    return {"flash_attention": {"quality_gates": launches, "bench": detail["launches"]["flash_attention"]},
+            "blend_tiles": {"bench": detail["launches"]["blend_tiles"]}}
+
+
 def phase_throughput(torch, np, report, svc, engine, reqs, card):
     from image_restoration_platform_tpu_torch import imageio
     from image_restoration_platform_tpu_torch.obs.metrics import get_counters
@@ -1795,6 +1918,8 @@ def main() -> int:
                         help="stop after the kernels' build and checks; prints no result lines")
     parser.add_argument("--mesh-only", action="store_true",
                         help="build the kernels and run the mesh phase (7) alone; prints no result lines")
+    parser.add_argument("--quality-only", action="store_true",
+                        help="build the kernels and run the quality and bench phase (8) alone; prints no result lines")
     args = parser.parse_args()
     try:
         import torch
@@ -1842,6 +1967,10 @@ def main() -> int:
         phase_mesh(torch, np, report, card)
         print(f"mesh only: {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    if args.quality_only:
+        phase_quality_bench(torch, np, report, card)
+        print(f"quality only: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     rows = phase_kernels(torch, report)
     blend_rows = phase_blend_kernel(torch, report)
     if args.kernels_only:
@@ -1853,6 +1982,8 @@ def main() -> int:
         launches[name]["service_graph"] = n
     launches["flash_attention"].update(phase_train(torch, np, report, card))
     for name, by_path in phase_mesh(torch, np, report, card).items():
+        launches[name].update(by_path)
+    for name, by_path in phase_quality_bench(torch, np, report, card).items():
         launches[name].update(by_path)
 
     main_row = next(r for r in rows if r["shape"] == [8, 4, 4096, 64])

@@ -110,6 +110,11 @@ def classify_scores(img_u8: torch.Tensor, is_jpeg: bool = False) -> dict[str, to
     }
 
 
+def scores_to_vector(scores: dict[str, float]) -> np.ndarray:
+    """Pack a score dict into the canonical 7-dim conditioning vector."""
+    return np.asarray([float(scores[k]) for k in DEGRADATION_ORDER], dtype=np.float32)
+
+
 _FALLBACKS = {
     # per-analyzer conservative fallbacks (classifier.js)
     "blur": 0.1,
@@ -190,3 +195,7 @@ class ClassifierService:
     @staticmethod
     def get_degradation_types() -> dict[str, str]:
         return dict(DEGRADATION_TYPES)
+
+
+def create_classifier_service(**kwargs) -> ClassifierService:
+    return ClassifierService(**kwargs)

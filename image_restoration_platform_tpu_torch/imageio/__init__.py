@@ -4,7 +4,7 @@ The port's own copy of image_restoration_platform_tpu/imageio: decode,
 magic-byte sniffing, EXIF auto-orient, JPEG q85 4:4:4 encode with sRGB ICC
 attach and EXIF strip, raw YCbCr 4:2:0 JPEG encode, Lanczos resize, and the
 raw 16-bit PNG decode of the HDR pre-pass (``decode_image_u16``, native codec
-only). Decoding lands in numpy arrays that the engine copies to the device.
+only), and PNG and WebP encode. Decoding lands in numpy arrays that the engine copies to the device.
 
 The C++ source (csrc/imageio.cpp) is compiled at first use into
 ``build/imageio/`` at the repository root (listed in ``.gitignore``) and
@@ -102,6 +102,12 @@ def _load_native():
             lib.irp_encode_png.restype = ctypes.c_int
             lib.irp_encode_png.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                ctypes.POINTER(ctypes.c_size_t),
+            ]
+            lib.irp_encode_webp.restype = ctypes.c_int
+            lib.irp_encode_webp.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
                 ctypes.POINTER(ctypes.c_size_t),
             ]
@@ -271,22 +277,30 @@ def decode_image_u16(data: bytes) -> np.ndarray:
     return out
 
 
-def _decode_pillow(data: bytes, auto_orient: bool) -> DecodedImage:  # pragma: no cover
+def _decode_pillow(data: bytes, auto_orient: bool) -> DecodedImage:
     from PIL import Image, ImageOps
 
     fmt = sniff_format(data)
     if fmt is None:
         raise ValueError("unsupported or corrupt image data")
-    with Image.open(io.BytesIO(data)) as im:
-        _check_pixel_budget(im.width, im.height)
-        orientation = 1
-        try:
-            orientation = int(im.getexif().get(0x0112, 1))
-        except Exception:
-            pass
-        if auto_orient:
-            im = ImageOps.exif_transpose(im)
-        arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
+    # Pillow reports corrupt, truncated and oversized inputs as OSError,
+    # SyntaxError or DecompressionBombError: all are ValueError here, as the
+    # native codec raises them
+    try:
+        with Image.open(io.BytesIO(data)) as im:
+            _check_pixel_budget(im.width, im.height)
+            orientation = 1
+            try:
+                orientation = int(im.getexif().get(0x0112, 1))
+            except Exception:
+                pass
+            if auto_orient:
+                im = ImageOps.exif_transpose(im)
+            arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
+    except Image.DecompressionBombError as error:
+        raise ValueError(f"image dimensions exceed the {MAX_INPUT_PIXELS}-pixel input limit: {error}") from error
+    except (OSError, SyntaxError) as error:
+        raise ValueError(f"unsupported or corrupt image data: {error}") from error
     return DecodedImage(arr, fmt, arr.shape[1], arr.shape[0], orientation)
 
 
@@ -410,4 +424,32 @@ def encode_png(img: np.ndarray) -> bytes:
 
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, "PNG")
+    return buf.getvalue()
+
+
+def encode_webp(img: np.ndarray, quality: float = 85.0) -> bytes:
+    """Lossy WebP encode (libwebp natively, else Pillow's WebP plugin; a
+    Pillow built without WebP raises rather than write another format)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    lib = _load_native()
+    if lib is not None:
+        out = ctypes.POINTER(ctypes.c_uint8)()
+        out_len = ctypes.c_size_t()
+        rc = lib.irp_encode_webp(
+            img.ctypes.data_as(ctypes.c_void_p), w, h, ctypes.c_float(quality),
+            ctypes.byref(out), ctypes.byref(out_len),
+        )
+        if rc != 0:
+            raise ValueError(f"webp encode failed (code {rc})")
+        try:
+            return ctypes.string_at(out, out_len.value)
+        finally:
+            lib.irp_free(out)
+    from PIL import Image, features
+
+    if not features.check("webp"):
+        raise RuntimeError("WebP encode needs libwebp: the native codec did not build and Pillow has no WebP support")
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", quality=int(quality))
     return buf.getvalue()

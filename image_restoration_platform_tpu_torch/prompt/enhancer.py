@@ -1,16 +1,20 @@
-"""Meta-prompt text from degradation scores.
+"""Meta-prompt text and conditioning from degradation scores.
 
-The port's copy of the template text and selection logic of
-image_restoration_platform_tpu/prompt/enhancer.py (``PromptEnhancerService
-.enhance``): issues are the scores above 0.3, ranked by confidence, top 3
-kept; severity high >= 0.7 / medium >= 0.5 / low; each (type, severity)
-maps to a fixed instruction phrase. The model's conditioning is built on
-the device from the same scores (classify/fused.py); the text is kept for
+The port's copy of image_restoration_platform_tpu/prompt/enhancer.py:
+issues are the scores above 0.3, ranked by confidence, top 3 kept;
+severity high >= 0.7 / medium >= 0.5 / low; each (type, severity) maps to a
+fixed instruction phrase. ``conditioning_vector`` is the host form of the
+28-dim conditioning (7 raw scores + 7 types x 3 severities, one-hot scaled
+by the score) that the restore program builds on the device from the same
+scores (classify/fused.py:conditioning_from_scores); the text is kept for
 API parity.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
+from ..classify.classifier import DEGRADATION_ORDER
 from ..obs.tracing import get_tracer
 from ..utils.logging import get_logger
 
@@ -62,6 +66,9 @@ ISSUE_THRESHOLD = 0.3
 MAX_ISSUES = 3
 MAX_PROMPT_LEN = 1000
 
+_SEVERITIES = ("low", "medium", "high")
+# conditioning layout: [7 raw scores | 7 types x 3 severities one-hot]
+COND_DIM = len(DEGRADATION_ORDER) * (1 + len(_SEVERITIES))
 
 
 def determine_severity(confidence: float) -> str:
@@ -80,6 +87,33 @@ def identify_top_issues(degradation: dict[str, float]) -> list[dict]:
     ]
     issues.sort(key=lambda i: i["confidence"], reverse=True)
     return issues[:MAX_ISSUES]
+
+
+def conditioning_vector(degradation: dict[str, float]) -> np.ndarray:
+    """The 28-dim conditioning of one score dict: the raw scores in
+    DEGRADATION_ORDER, then for each selected issue the confidence at its
+    (type, severity) slot; unselected types stay zero."""
+    vec = np.zeros(COND_DIM, dtype=np.float32)
+    for i, t in enumerate(DEGRADATION_ORDER):
+        vec[i] = float(degradation.get(t, 0.0))
+    offset = len(DEGRADATION_ORDER)
+    for issue in identify_top_issues(degradation):
+        ti = DEGRADATION_ORDER.index(issue["type"])
+        si = _SEVERITIES.index(issue["severity"])
+        vec[offset + ti * len(_SEVERITIES) + si] = issue["confidence"]
+    return vec
+
+
+def validate_degradation(degradation: dict) -> bool:
+    for t in DEGRADATION_ORDER:
+        if t not in degradation:
+            raise ValueError(f"Missing degradation type: {t}")
+        v = degradation[t]
+        if not isinstance(v, (int, float)) or not (0.0 <= float(v) <= 1.0):
+            raise ValueError(
+                f"Invalid degradation value for {t}: must be number between 0 and 1"
+            )
+    return True
 
 
 class PromptEnhancerService:
@@ -116,6 +150,18 @@ class PromptEnhancerService:
                 }
             )
             return prompt
+
+    def enhance_with_conditioning(
+        self,
+        degradation: dict[str, float],
+        user_prompt: str | None = None,
+        options: dict | None = None,
+    ) -> tuple[str, np.ndarray]:
+        """Prompt text (API parity) + conditioning vector (model input)."""
+        return (
+            self.enhance(degradation, user_prompt, options),
+            conditioning_vector(degradation),
+        )
 
     def _degradation_instructions(self, issues: list[dict]) -> list[str]:
         out = []
@@ -159,3 +205,15 @@ class PromptEnhancerService:
             )
             prompt = prompt[:950] + "..."
         return prompt
+
+    @staticmethod
+    def get_degradation_templates() -> dict:
+        return {k: dict(v) for k, v in DEGRADATION_TEMPLATES.items()}
+
+    @staticmethod
+    def validate_degradation(degradation: dict) -> bool:
+        return validate_degradation(degradation)
+
+
+def create_prompt_enhancer_service(**kwargs) -> PromptEnhancerService:
+    return PromptEnhancerService(**kwargs)

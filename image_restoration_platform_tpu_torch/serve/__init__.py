@@ -12,7 +12,7 @@ from .moderation import ModerationAuditLog, ModerationService
 from .queue import JobQueue
 from .ratelimit import RateLimiter
 from .redis_store import RedisStore
-from .restorator import RestoratorService
+from .restorator import RestoratorService, create_restorator_service
 from .store import MemoryStore, create_store
 
 __all__ = [
@@ -37,6 +37,7 @@ __all__ = [
     "SqliteUserStore",
     "create_durable_tier",
     "create_job_store",
+    "create_restorator_service",
     "create_store",
     "payload_hash",
     "resolve_device",

@@ -59,6 +59,19 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+def uses_s2d_io(family_name: str, config: ServingConfig) -> bool:
+    """Whether an engine of ``config`` serves ``family_name`` with
+    space-to-depth IO (the s2d-stem UNets with RGB in and out)."""
+    if not config.s2d_io:
+        return False
+    cfg = get_family(family_name).config
+    return (
+        getattr(cfg, "input_scale", 1) > 1
+        and getattr(cfg, "in_channels", 0) == getattr(cfg, "out_channels", -1)
+        and not getattr(cfg, "time_conditioned", False)
+    )
+
+
 def _pack(tensors) -> torch.Tensor:
     """One flat byte buffer of the tensors, so a fetch is one device->host
     copy."""
@@ -150,14 +163,7 @@ class RestorationEngine:
     # ----------------------------------------------------- models/programs
 
     def _uses_s2d_io(self, family_name: str) -> bool:
-        if not self.config.s2d_io:
-            return False
-        cfg = get_family(family_name).config
-        return (
-            getattr(cfg, "input_scale", 1) > 1
-            and getattr(cfg, "in_channels", 0) == getattr(cfg, "out_channels", -1)
-            and not getattr(cfg, "time_conditioned", False)
-        )
+        return uses_s2d_io(family_name, self.config)
 
     def model(self, family_name: str) -> torch.nn.Module:
         """The family's model on this engine's device, conv and dense

@@ -36,11 +36,13 @@ def build_restore_program(
     """``fn(model, canvas_u8 [N,B,B,3] u8, valid_hw [N,2] int32,
     is_jpeg_f [N] f32[, noise]) -> (out, scores [N,7])``, all tensors on the
     model's device. ``out`` is the RGB u8 canvas, or with ``egress="yuv420"``
-    (standard restore families only) the (Y, Cb, Cr) u8 planes. The keyword
-    ``fires`` (a dict) receives the stages' [N] bool fire masks under
+    (standard restore families only) the (Y, Cb, Cr) u8 planes, or with
+    ``egress="f32"`` (standard restore families only) the RGB output clipped
+    to [0, 1] before its byte rounding, which the quality gates read. The
+    keyword ``fires`` (a dict) receives the stages' [N] bool fire masks under
     ``STAGE_FIRES``' names. For an SR family: ``fn(model, imgs_u8
     [N,H,W,3]) -> [N,H*scale,W*scale,3] u8``."""
-    if egress not in ("rgb", "yuv420"):
+    if egress not in ("rgb", "yuv420", "f32"):
         raise ValueError(f"unknown egress {egress!r}")
 
     def stages(canvas_u8, valid_hw, is_jpeg_f, scores, cond, fires):
@@ -89,12 +91,16 @@ def build_restore_program(
                 out = model(x, cond.to(dtype), s2d_io=True)
                 if egress == "yuv420":
                     return to_yuv420_s2d(out), scores
+                if egress == "f32":
+                    return mnn.pixel_shuffle(torch.clamp(out.float(), 0.0, 1.0), s2d_scale), scores
                 out_u8 = torch.round(torch.clamp(out.float(), 0.0, 1.0) * 255.0).to(torch.uint8)
                 return mnn.pixel_shuffle(out_u8, s2d_scale), scores
             x = canvas_u8.to(dtype) / 255.0
             out = torch.clamp(model(x, cond.to(dtype)).float(), 0.0, 1.0)
             if egress == "yuv420":
                 return to_yuv420(out * 255.0), scores
+            if egress == "f32":
+                return out, scores
             return torch.round(out * 255.0).to(torch.uint8), scores
 
     return program

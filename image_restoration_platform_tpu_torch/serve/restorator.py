@@ -552,3 +552,7 @@ class RestoratorService:
             },
             "timestamp": time.time(),
         }
+
+
+def create_restorator_service(**kwargs) -> RestoratorService:
+    return RestoratorService(**kwargs)

@@ -176,6 +176,11 @@ def test_launch_plan_of_the_paths_shapes(shape, dtype):
         ((1, 4, 4096, 64), "bfloat16"): ("wgmma_q192", 192, 128, 4, 512, 0),
         ((4, 4, 4096, 64), "bfloat16"): ("wgmma_q192", 192, 128, 4, 512, 12),
         ((4, 4, 256, 64), "float32"): ("simt_f32", 32, 64, 2, 128, 16),
+        # the quality gates at 128 px: 32 heads of 256 keys on 64-query blocks
+        # (four a head, two 128-key stages); 32 heads of 1024 keys, two of
+        # them on 192-query blocks
+        ((8, 4, 256, 64), "bfloat16"): ("wgmma_q64", 64, 128, 2, 256, 32),
+        ((8, 4, 1024, 64), "bfloat16"): ("wgmma_q192", 192, 128, 4, 512, 2),
     }[(shape, dtype)]
     assert (plan.variant, plan.block_q, plan.block_k, plan.stages, plan.threads, plan.full_heads) == expected
     assert plan.variant in A.VARIANTS and 0 <= plan.shared_bytes <= 232_448
