@@ -26,7 +26,10 @@ failure (exit code 1):
    so host dispatch is not timed; median of 20 such groups after warm-up);
 3. slice: RestoratorService + MicroBatcher + RestorationEngine(bf16) with
    the shipped weights serve, path by path with the kernels' launch counts
-   set to 0 before each and read after it:
+   set to 0 before each and read after it, after ``warmup_serving`` at the
+   default buckets has built every executable (CUDA graphs) the paths
+   take (its seconds, executables, graphs and device memory printed), so
+   no path builds one (``compile_count`` held flat over the restore path):
    - restore: concurrent 256 and 512 requests (clean, low-quality JPEG,
      motion-blurred); every result is checked, each UNet forward at a bucket
      <= 512 launched the attention kernel once, the deblock/deblur fire
@@ -96,8 +99,24 @@ failure (exit code 1):
    ``synthetic_batch`` draws at the gate seeds, made on the CPU; then
    ``python -m image_restoration_platform_tpu_torch.bench`` in a subprocess:
    its headline parses, with a positive value, ``mfu`` in (0, 1], the
-   validity stamp VALID, and attention and blend launches in its run.
+   validity stamp VALID, and attention and blend launches in its run;
+9. graphs: the executable tier (serve/exec_cache.py) on phase 3's engine
+   against an engine that runs the same programs eagerly
+   (``RestorationEngine(eager=True)``), on every surface the warm-up built
+   (restore-unet and diffusion-restore at 256, 512, 1024 x b1-b8, each on
+   a batch that fires no stage and on batches that fire deblock, the veto's
+   gate and deblur; fusion k3; sr-x2 direct and tiled 2048 in both
+   egresses) and on the HDR pre-pass: the outputs equal in bytes (a
+   surface named in GRAPH_LEVEL_EXCEPTIONS, with the op that differs
+   under capture, may differ by 1 level), the attention and blend launches
+   equal, ``compile_count`` flat; then the eager and graph engine step at
+   256 b1, 512 b8 and sr_tiled 2048, timed in turns (eager, graph, graph,
+   eager) with one profiled step each: kernel ms, kernels, the host's
+   kernel-launch and graph-launch calls, idle share.
 
+Every engine replays CUDA graphs by default (the executable tier), so
+phases 3-8 run on graphs; the launch counts read the kernels' counters,
+which every graph replay advances by the launches its capture recorded.
 Phase 2 also holds the kernel at the training shapes ([32, 4, 256, 64] and
 [32, 4, 1024, 64] bf16) and checks the gradients through ``FlashAttention``
 (the kernel's forward, the plain backward) against autograd through the
@@ -105,8 +124,9 @@ plain forward at [32, 4, 256, 64].
 
 ``--report PATH`` also writes the full report as JSON to PATH;
 ``--kernels-only`` stops after phase 2 (a quick check of a changed kernel),
-and ``--mesh-only`` and ``--quality-only`` run phase 7 or phase 8 alone
-after the builds; they print no result lines and exit 0 or 1. The last
+and ``--mesh-only``, ``--quality-only`` and ``--graphs-only`` run phase 7,
+phase 8 or phase 9 (after its own warm-up) alone after the builds; they
+print no result lines and exit 0 or 1. The last
 lines of standard output are the card line, the kernels JSON line, and
 {"ok": true, "device": {...}}.
 """
@@ -549,6 +569,28 @@ def phase_kernels(torch, report):
     return rows
 
 
+def serving_warmup(torch, engine, card, report) -> dict:
+    """``warmup_serving`` of GRAPH_WARM_FAMILIES at the engine's buckets
+    (the defaults: 256, 512, 1024, batches 1-8, sr_tiled 2048): seconds,
+    executables and graphs built, and device memory, the peak during it and
+    what it leaves held."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    warm = engine.warmup_serving(families=GRAPH_WARM_FAMILIES)
+    torch.cuda.synchronize()
+    warmup = {"card": card, "seconds": time.perf_counter() - t, "surfaces": len(warm),
+              "seconds_by_surface": warm, **engine.exec_stats(),
+              "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "held_after_gib": (torch.cuda.memory_allocated() - held_before) / 2**30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    print(json.dumps({"serving_warmup": {k: v for k, v in warmup.items() if k != "seconds_by_surface"}}),
+          flush=True)
+    report["serving_warmup"] = warmup
+    return warmup
+
+
 def phase_slice(torch, np, report, card):
     from image_restoration_platform_tpu_torch import imageio
     from image_restoration_platform_tpu_torch.config import ServingConfig
@@ -567,10 +609,13 @@ def phase_slice(torch, np, report, card):
     reqs = build_requests(np, imageio, motion_psf)
 
     try:
+        # every executable of the surfaces the phases drive is built here, none in a path
+        warmup = serving_warmup(torch, engine, card, report)
         t = time.perf_counter()
-        for name in ("clean256", "clean512"):  # model load, cuDNN plans
+        for name in ("clean256", "clean512"):
             check(svc.restore(reqs[name][0])["success"], f"warm-up {name} failed")
         report["warmup_s"] = time.perf_counter() - t
+        check(engine.compile_count == warmup["compile_count"], "a warmed restore request built an executable")
 
         # --- the main path: counts from 0, concurrent requests, counts read after
         counters = get_counters()
@@ -594,6 +639,8 @@ def phase_slice(torch, np, report, card):
             check((out.height, out.width) == (src.height, src.width), f"{name}: output {out.height}x{out.width}")
         check(forwards > 0 and launches == forwards,
               f"attention launches {launches} != UNet forwards at buckets <= 512 ({forwards})")
+        check(engine.compile_count == warmup["compile_count"],
+              f"the restore path built {engine.compile_count - warmup['compile_count']} executables after the warm-up")
         print(json.dumps({"slice": {"requests": len(results), "batches": batches, "forwards_le_512": forwards,
                                     "attention_launches": launches,
                                     "host_syncs": {k: v for k, v in delta.items() if k.startswith("host_sync")},
@@ -641,7 +688,7 @@ def phase_slice(torch, np, report, card):
     finally:
         batcher.shutdown()
     return {"flash_attention": {"restore": launches, "diffusion_fusion": diffusion_launches},
-            "blend_tiles": {"super_resolution": blend_launches}}
+            "blend_tiles": {"super_resolution": blend_launches}}, engine
 
 
 # launches of each kernel variant on the driven paths, summed over the paths
@@ -867,7 +914,10 @@ def phase_service_graph(torch, np, report, card):
     ctx = AppContext(config=config, queue_workers=2, device="cuda")
     try:
         t = time.perf_counter()
-        warm = ctx.engine.warmup_serving(families=("restore-unet",), sizes=(256, 512))
+        # every surface the jobs take, so no job builds an executable (a build's
+        # warm-up pass would add its own launches to the path's counts)
+        warm = ctx.engine.warmup_serving(families=("restore-unet", "fusion", "sr-x2"), sizes=(256, 512),
+                                         sr_tiled_canvas=1024)
         out = {"card": card, "warmup_s": time.perf_counter() - t, "warmup_surfaces_s": warm}
         print(json.dumps({"service_warmup": out}), flush=True)
         jobs = _service_uploads(np, imageio, ctx, preprocess)
@@ -1605,6 +1655,189 @@ def phase_mesh(torch, np, report, card):
     return launches
 
 
+# the graph phase: the executable tier's CUDA graphs against eager execution
+# (serve/exec_cache.py). The surfaces warmup_serving builds at the default
+# buckets; sr-x4 goes through the same programs as sr-x2 and is left out.
+GRAPH_WARM_FAMILIES = ("restore-unet", "diffusion-restore", "sr-x2", "fusion")
+# a surface whose graph may differ from eager execution by 1 level, with the
+# op whose library algorithm differs under capture: none, every surface is
+# held equal in bytes
+GRAPH_LEVEL_EXCEPTIONS: dict = {}
+GRAPH_STEP_REPS = 5
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def _graph_inputs(np, imageio, motion_psf, size: int) -> dict:
+    """Canvases at ``size``: a clean photo, a blocky JPEG (deblock fires) and
+    a motion blur (the veto's gate and deblur fire), as phase 3 builds them."""
+    u8 = lambda x: np.clip(np.round(x * 255.0), 0, 255).astype(np.uint8)  # noqa: E731
+    jpeg = imageio.decode_image(imageio.encode_jpeg(u8(_photo(np, 3, size)), quality=15)).pixels
+    return {"clean": u8(_photo(np, 1, size)), "jpeg": np.ascontiguousarray(jpeg),
+            "blur": u8(_motion_blur(np, _photo(np, 2, size), motion_psf(9.0, 0.9)))}
+
+
+def _graph_batches(np, images: dict, batch: int) -> dict:
+    """{name: (canvas, is_jpeg)} of ``batch`` images: clean photos, and
+    batches that fire the stages (the JPEG and the blur together, or one
+    each at batch 1)."""
+    def of(names):
+        names = (list(names) * batch)[:batch]
+        return (np.stack([images[n] for n in names]),
+                np.asarray([1.0 if n == "jpeg" else 0.0 for n in names], np.float32))
+
+    if batch == 1:
+        return {"clean": of(["clean"]), "fire_jpeg": of(["jpeg"]), "fire_blur": of(["blur"])}
+    return {"clean": of(["clean"]), "fire": of(["jpeg", "blur", "clean"])}
+
+
+def _arrays(result) -> list:
+    """The numpy arrays of a surface's result, in order, meta left out."""
+    out = []
+    for item in result if isinstance(result, tuple) else (result,):
+        if isinstance(item, tuple):
+            out.extend(item)
+        elif hasattr(item, "dtype"):
+            out.append(item)
+    return out
+
+
+def _step_profile(torch, fn, step_ms: float) -> dict:
+    """One profiled call: kernel ms on the card, kernels run, the host's
+    kernel-launch calls and graph launches, and the idle share against the
+    unprofiled step time."""
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        fn()
+    busy, count, split, _ = _kernel_split(torch, prof, skip=("restore/", "sr_tiled/"))
+    events = prof.key_averages()
+    return {"kernel_ms": busy if count else "not measured", "kernels": count, "by_kind_ms": split,
+            "host_kernel_launches": sum(e.count for e in events if e.key in LAUNCH_APIS),
+            "host_graph_launches": sum(e.count for e in events if e.key == "cudaGraphLaunch"),
+            "device_idle_share": 1.0 - busy / step_ms if count else "not measured"}
+
+
+def phase_graphs(torch, np, report, card, engine):
+    """The executable tier on the card: graph replay against eager execution
+    of the same programs on every surface ``warmup_serving`` built (phase 3's
+    engine, warmed at the default buckets), on batches that fire the stages
+    and on batches that fire none, bytes, scores and the kernels' launches
+    equal, with no build in any of it; then eager and graph step times taken
+    in turns (eager, graph, graph, eager) at 256 b1, 512 b8 and sr_tiled
+    2048, each with one profiled step."""
+    from image_restoration_platform_tpu_torch import imageio
+    from image_restoration_platform_tpu_torch.obs.metrics import get_counters
+    from image_restoration_platform_tpu_torch.ops.cuda.attention import flash_kernel
+    from image_restoration_platform_tpu_torch.ops.cuda.blend import blend_kernel
+    from image_restoration_platform_tpu_torch.ops.deblur import disk_psf, motion_psf
+    from image_restoration_platform_tpu_torch.serve import RestorationEngine
+
+    t_phase = time.perf_counter()
+    cfg = engine.config
+    eager = RestorationEngine(device="cuda", dtype=engine.dtype, serving_config=cfg,
+                              param_cache=engine.params_cache, eager=True)
+    check(not engine.eager and eager.eager, "the graph engine must replay graphs and its twin run eagerly")
+    counters = get_counters()
+    rows: list = []
+    launches = {"flash_attention": 0, "blend_tiles": 0}
+
+    def compare(surface: str, run) -> None:
+        """``run(e)`` on the graph engine, then on the eager twin: equal
+        arrays and equal launches of both kernels."""
+        _zero_launches(flash_kernel)
+        _zero_launches(blend_kernel)
+        got = _arrays(run(engine))
+        graph_n = (_read_launches("flash_attention", flash_kernel), _read_launches("blend_tiles", blend_kernel))
+        _zero_launches(flash_kernel)
+        _zero_launches(blend_kernel)
+        want = _arrays(run(eager))
+        eager_n = (flash_kernel.launches, blend_kernel.launches)
+        launches["flash_attention"] += graph_n[0]
+        launches["blend_tiles"] += graph_n[1]
+        levels = max(int(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.dtype == np.uint8 else 0
+                     for a, b in zip(got, want))
+        rows.append({"surface": surface, "equal": all(np.array_equal(a, b) for a, b in zip(got, want)),
+                     "max_levels": levels, "launches_graph": graph_n, "launches_eager": eager_n})
+
+    builds = engine.compile_count
+    fires_before = counters.snapshot()
+    for size in cfg.size_buckets:
+        images = _graph_inputs(np, imageio, motion_psf, size)
+        for batch in (1, 2, 4, 8):
+            for name, (canvas, is_jpeg) in _graph_batches(np, images, batch).items():
+                compare(f"restore-unet/{size}/b{batch}/{name}",
+                        lambda e, c=canvas, j=is_jpeg: e.restore_batch(c, is_jpeg=j))
+
+                def diffusion(e, c=canvas, j=is_jpeg):
+                    e._generator.manual_seed(size + batch)  # both engines draw the same noise
+                    return e.restore_batch(c, is_jpeg=j, family_name="diffusion-restore")
+
+                compare(f"diffusion-restore/{size}/b{batch}/{name}", diffusion)
+        triple = np.stack([images[n] for n in ("clean", "jpeg", "blur")])
+        compare(f"fusion/k3/{size}", lambda e, c=triple: e.fuse_batch(
+            c, np.tile([[size, size]], (3, 1)).astype(np.int32), np.asarray([0, 1, 0], np.float32)))
+        if size <= engine.SR_TILE_THRESHOLD:
+            compare(f"sr-x2/direct/{size}", lambda e, c=images["clean"]: e.sr_batch(c[None], "sr-x2"))
+    canvas2048 = _photo_large(np, 11, 2048, 2048)
+    for output in ("rgb", "yuv420"):
+        compare(f"sr-x2/tiled-{output}/2048", lambda e, o=output: e.sr_tiled(canvas2048, "sr-x2", output=o))
+    fires = _counter_delta(fires_before, counters.snapshot())
+    out = {"card": card, "compile_count_after_warmup": builds, "compile_count_after_serving": engine.compile_count,
+           "executables": engine.exec_stats(), "stage_fires_graph_and_eager": {
+               k: v for k, v in fires.items() if k.startswith("stage_fires.")}}
+    # the HDR pre-pass (not a warmed surface: built here), firing and not
+    for size in (256, 512):
+        blurred = np.clip(_motion_blur(np, _cells(np, np.random.default_rng(2), size), disk_psf(HDR_RADIUS)), 0, 1)
+        for name, x in (("fire", blurred), ("clean", _cells(np, np.random.default_rng(4), size))):
+            canvas = (np.round(x * 65535.0) / 65535.0).astype(np.float32)[None]
+            compare(f"hdr_deblur/{size}/{name}", lambda e, c=canvas: e.hdr_deblur_batch(
+                c, np.asarray([[size, size]], np.int32), np.zeros((1,), np.float32)))
+    out["surfaces"] = len(rows)
+    out["differing"] = [r for r in rows if not r["equal"]]
+    out["launches_differing"] = [r for r in rows if r["launches_graph"] != r["launches_eager"]]
+    out["launches_graph"] = launches
+    out["compare_s"] = time.perf_counter() - t_phase
+
+    # --- eager and graph step times in turns, one profiled step of each
+    steps = {}
+    photos = {s: np.clip(np.round(_photo(np, 1, s) * 255.0), 0, 255).astype(np.uint8) for s in (256, 512)}
+    cells = {
+        "256_b1": lambda e: e.restore_batch(photos[256][None]),
+        "512_b8": lambda e: e.restore_batch(np.repeat(photos[512][None], 8, axis=0)),
+        "sr_tiled_2048": lambda e: e.sr_tiled(canvas2048, "sr-x2"),
+    }
+    for cell, fn in cells.items():
+        times: dict = {"graph": [], "eager": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            e = engine if mode == "graph" else eager
+            fn(e)
+            for _ in range(GRAPH_STEP_REPS):
+                t = time.perf_counter()
+                fn(e)
+                times[mode].append(1e3 * (time.perf_counter() - t))
+        steps[cell] = {}
+        for mode, e in (("eager", eager), ("graph", engine)):
+            step = statistics.median(times[mode])
+            steps[cell][mode] = {"step_ms": step, **_step_profile(torch, lambda: fn(e), step)}
+        print(json.dumps({f"graph_step_{cell}": steps[cell]}), flush=True)
+    out["steps"] = steps
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"graph_phase": {k: v for k, v in out.items() if k != "steps"}}), flush=True)
+    report["graphs"] = {**out, "rows": rows}
+
+    check(out["compile_count_after_serving"] == builds,
+          f"a warmed surface was built in a request: {builds} -> {out['compile_count_after_serving']} executables")
+    for stage in ("deblock", "deblur_veto", "deblur"):
+        check(fires.get(f"stage_fires.{stage}", 0) > 0, f"no batch of the graph phase fired {stage}: {fires}")
+    for row in out["differing"]:
+        op = next((op for prefix, op in GRAPH_LEVEL_EXCEPTIONS.items() if row["surface"].startswith(prefix)), None)
+        check(op is not None and row["max_levels"] <= 1, f"graph replay differs from eager execution: {row}")
+    check(not out["launches_differing"], f"graph and eager launches differ: {out['launches_differing']}")
+    check(launches["flash_attention"] > 0 and launches["blend_tiles"] > 0, f"graph phase launches {launches}")
+    return {"flash_attention": {"graphs": launches["flash_attention"]},
+            "blend_tiles": {"graphs": launches["blend_tiles"]}}
+
+
 # the quality and bench phase: every gate value of the card's bf16 run held
 # to the port's CPU bf16 run on the same inputs. The bars are ~10x the gaps
 # read on the card (NVIDIA H100 80GB HBM3, 700 W): OOD gains within 0.0014 dB,
@@ -1920,6 +2153,9 @@ def main() -> int:
                         help="build the kernels and run the mesh phase (7) alone; prints no result lines")
     parser.add_argument("--quality-only", action="store_true",
                         help="build the kernels and run the quality and bench phase (8) alone; prints no result lines")
+    parser.add_argument("--graphs-only", action="store_true",
+                        help="build the kernels, warm an engine and run the graph phase (9) alone; "
+                             "prints no result lines")
     args = parser.parse_args()
     try:
         import torch
@@ -1971,12 +2207,26 @@ def main() -> int:
         phase_quality_bench(torch, np, report, card)
         print(f"quality only: {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    if args.graphs_only:
+        from image_restoration_platform_tpu_torch.config import ServingConfig
+        from image_restoration_platform_tpu_torch.serve import RestorationEngine
+
+        engine = RestorationEngine(device="cuda", dtype=torch.bfloat16,
+                                   serving_config=ServingConfig(size_buckets=(256, 512, 1024), max_batch=8))
+        serving_warmup(torch, engine, card, report)
+        phase_graphs(torch, np, report, card, engine)
+        if args.report:
+            os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        print(f"graphs only: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     rows = phase_kernels(torch, report)
     blend_rows = phase_blend_kernel(torch, report)
     if args.kernels_only:
         print(f"kernels only: {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
-    launches = phase_slice(torch, np, report, card)
+    launches, engine = phase_slice(torch, np, report, card)
     service = phase_service_graph(torch, np, report, card)
     for name, n in service.items():
         launches[name]["service_graph"] = n
@@ -1984,6 +2234,8 @@ def main() -> int:
     for name, by_path in phase_mesh(torch, np, report, card).items():
         launches[name].update(by_path)
     for name, by_path in phase_quality_bench(torch, np, report, card).items():
+        launches[name].update(by_path)
+    for name, by_path in phase_graphs(torch, np, report, card, engine).items():
         launches[name].update(by_path)
 
     main_row = next(r for r in rows if r["shape"] == [8, 4, 4096, 64])

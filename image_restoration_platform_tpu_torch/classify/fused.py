@@ -24,6 +24,18 @@ _SCRATCH_THRESHOLD = 200.0
 # photometric rows (lowLight, fade, colorShift) of the score vector
 PHOTOMETRIC = (0.0, 0.0, 1.0, 0.0, 0.0, 1.0, 1.0)
 
+_photometric: dict = {}
+
+
+def photometric_on(device: torch.device) -> torch.Tensor:
+    """PHOTOMETRIC as an f32 tensor on ``device``, uploaded on first use: a
+    program captured as a CUDA graph may not copy from the host, and
+    outside a capture the copy would be a hidden synchronisation."""
+    key = str(device)
+    if key not in _photometric:
+        _photometric[key] = torch.tensor(PHOTOMETRIC).to(device)
+    return _photometric[key]
+
 
 def _valid_mask(b: int, h: int, w: int, valid_hw: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(h, device=valid_hw.device)[None, :, None]

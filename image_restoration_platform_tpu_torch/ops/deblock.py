@@ -10,6 +10,12 @@ reference's ``lax.cond`` stays on the device); each one is counted and
 timed under ``deblock`` by ``obs.metrics.host_flag``. Each image takes its
 result or its input by its own fire flag (``torch.where``), so non-firing
 images pass through as the same bytes whatever their batch-mates do.
+
+The two sides of the decision are functions of their own,
+``deblock_decision`` and ``deblock_apply``, which the serving program runs
+as separate segments (serve/programs/restore.py). Their constants are
+copied to each device once (``_consts_on``), so neither uploads anything
+while it runs.
 """
 
 from __future__ import annotations
@@ -48,22 +54,31 @@ _YCC2RGB = np.array(
 )
 
 
-def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(a).to(like.device)
+_device_consts: dict = {}
+
+
+def _consts_on(device: torch.device) -> dict:
+    """The DCT and colour matrices on ``device``, copied on first use."""
+    key = str(device)
+    if key not in _device_consts:
+        host = {"dct": _DCT, "rgb2y": _RGB2YCC[0].copy(),
+                "rgb2ycc_t": _RGB2YCC.T.copy(), "ycc2rgb_t": _YCC2RGB.T.copy()}
+        _device_consts[key] = {name: torch.from_numpy(a).to(device) for name, a in host.items()}
+    return _device_consts[key]
 
 
 def _block_dct(ch: torch.Tensor) -> torch.Tensor:
     """[..., H, W] -> [..., H/8, W/8, 8, 8] forward 8x8 DCT."""
     *lead, h, w = ch.shape
     b = ch.reshape(*lead, h // BLOCK, BLOCK, w // BLOCK, BLOCK).transpose(-3, -2)
-    d = _const(_DCT, ch)
+    d = _consts_on(ch.device)["dct"]
     return torch.matmul(torch.matmul(d, b), d.T)
 
 
 def _block_idct(c: torch.Tensor) -> torch.Tensor:
     """[..., H/8, W/8, 8, 8] -> [..., H, W] inverse 8x8 DCT."""
     *lead, nb_y, nb_x, _, _ = c.shape
-    d = _const(_DCT, c)
+    d = _consts_on(c.device)["dct"]
     b = torch.matmul(torch.matmul(d.T, c), d)
     return b.transpose(-3, -2).reshape(*lead, nb_y * BLOCK, nb_x * BLOCK)
 
@@ -100,14 +115,15 @@ def estimate_qstep(y: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
 
 def deblock_lambda(canvas_f32: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
     """[B,H,W,3] (0..255), [B,2] -> [B] luma threshold."""
-    y = torch.matmul(canvas_f32, _const(_RGB2YCC[0], canvas_f32))
+    y = torch.matmul(canvas_f32, _consts_on(canvas_f32.device)["rgb2y"])
     return torch.clamp(LAM_COEF * estimate_qstep(y, valid_hw), max=LAM_CAP)
 
 
 def _deblock(x: torch.Tensor, lam_y: torch.Tensor) -> torch.Tensor:
     """[B,H,W,3] RGB (0..255) -> deblocked RGB, four shifted grids averaged."""
     b, h, w, _ = x.shape
-    ycc = torch.matmul(x, _const(_RGB2YCC.T.copy(), x)).permute(0, 3, 1, 2)  # [B,3,H,W]
+    consts = _consts_on(x.device)
+    ycc = torch.matmul(x, consts["rgb2ycc_t"]).permute(0, 3, 1, 2)  # [B,3,H,W]
     lam = torch.stack([lam_y, lam_y * LAM_CHROMA, lam_y * LAM_CHROMA], dim=1)[:, :, None, None, None, None]
     acc = torch.zeros_like(ycc)
     for sy, sx in SHIFTS:
@@ -118,17 +134,18 @@ def _deblock(x: torch.Tensor, lam_y: torch.Tensor) -> torch.Tensor:
         c = torch.sign(c) * torch.clamp(c.abs() - lam, min=0.0)
         c[..., 0:1, 0:1] = dc
         acc = acc + _block_idct(c)[..., sy : sy + h, sx : sx + w]
-    return torch.matmul((acc / len(SHIFTS)).permute(0, 2, 3, 1), _const(_YCC2RGB.T.copy(), x))
+    return torch.matmul((acc / len(SHIFTS)).permute(0, 2, 3, 1), consts["ycc2rgb_t"])
 
 
-def _applies(canvas_u8: torch.Tensor) -> bool:
-    _, h, w, _ = canvas_u8.shape
+def applies(shape) -> bool:
+    """Whether the stage runs on [B,H,W,3] canvases of ``shape``."""
+    _, h, w, _ = shape
     return not (h % BLOCK or w % BLOCK or h < 64 or w < 64)
 
 
 def deblock_canvas_batch(canvas_u8: torch.Tensor, valid_hw: torch.Tensor):
     """u8 [B,H,W,3] -> (u8 deblocked-or-passthrough, fire [B] bool)."""
-    if not _applies(canvas_u8):
+    if not applies(canvas_u8.shape):
         return canvas_u8, torch.zeros(canvas_u8.shape[0], dtype=torch.bool, device=canvas_u8.device)
     x = canvas_u8.float()
     lam = deblock_lambda(x, valid_hw)
@@ -137,27 +154,39 @@ def deblock_canvas_batch(canvas_u8: torch.Tensor, valid_hw: torch.Tensor):
     return torch.where(fire[:, None, None, None], out_u8, canvas_u8), fire
 
 
-def deblock_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond, fires=None):
-    """The serving insertion, before the deblur stage. On fire, structural
-    scores are recomputed on the deblocked canvas while photometric scores
-    keep the original classification; a non-firing image keeps its canvas,
-    scores and conditioning. ``fires``, a dict, receives the [B] fire mask
-    under ``"deblock"``. Returns (canvas_u8, scores, cond)."""
-    from ..classify.fused import PHOTOMETRIC, batch_classify_and_condition, conditioning_from_scores
+def deblock_decision(canvas_u8: torch.Tensor, valid_hw: torch.Tensor):
+    """(lam [B], fire [B] bool): the luma threshold of each canvas and
+    whether the stage fires on it."""
+    lam = deblock_lambda(canvas_u8.float(), valid_hw)
+    return lam, lam > LAM_MIN_FIRE
 
-    if not _applies(canvas_u8):
+
+def deblock_apply(canvas_u8, valid_hw, is_jpeg_f, scores, cond, lam, fire):
+    """The stage's firing side: the deblocked canvas where ``fire``, its
+    structural scores recomputed, its photometric scores kept from the
+    original classification; a non-firing image keeps its canvas, scores
+    and conditioning. Returns (canvas_u8, scores, cond)."""
+    from ..classify.fused import batch_classify_and_condition, conditioning_from_scores, photometric_on
+
+    out_u8 = torch.clamp(torch.round(_deblock(canvas_u8.float(), lam)), 0, 255).to(torch.uint8)
+    deblocked = torch.where(fire[:, None, None, None], out_u8, canvas_u8)
+    post_scores, _ = batch_classify_and_condition(deblocked.float(), valid_hw, is_jpeg_f)
+    photometric = photometric_on(scores.device)
+    mixed = post_scores * (1.0 - photometric) + scores * photometric
+    mixed = torch.where(fire[:, None], mixed, scores)
+    return deblocked, mixed, torch.where(fire[:, None], conditioning_from_scores(mixed), cond)
+
+
+def deblock_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond, fires=None):
+    """The serving insertion, before the deblur stage: ``deblock_decision``,
+    the host branch, then ``deblock_apply`` when some image fires.
+    ``fires``, a dict, receives the [B] fire mask under ``"deblock"``.
+    Returns (canvas_u8, scores, cond)."""
+    if not applies(canvas_u8.shape):
         return canvas_u8, scores, cond
-    x = canvas_u8.float()
-    lam = deblock_lambda(x, valid_hw)
-    fire = lam > LAM_MIN_FIRE
+    lam, fire = deblock_decision(canvas_u8, valid_hw)
     if fires is not None:
         fires["deblock"] = fire
     if not host_flag("deblock", fire.any()):
         return canvas_u8, scores, cond
-    out_u8 = torch.clamp(torch.round(_deblock(x, lam)), 0, 255).to(torch.uint8)
-    deblocked = torch.where(fire[:, None, None, None], out_u8, canvas_u8)
-    post_scores, _ = batch_classify_and_condition(deblocked.float(), valid_hw, is_jpeg_f)
-    photometric = torch.tensor(PHOTOMETRIC, device=scores.device)
-    mixed = post_scores * (1.0 - photometric) + scores * photometric
-    mixed = torch.where(fire[:, None], mixed, scores)
-    return deblocked, mixed, torch.where(fire[:, None], conditioning_from_scores(mixed), cond)
+    return deblock_apply(canvas_u8, valid_hw, is_jpeg_f, scores, cond, lam, fire)

@@ -16,7 +16,12 @@ and timed by ``obs.metrics.host_flag``:
   some image fired.
 
 Each image takes its own result by its flag (``torch.where``), so an image's
-output does not depend on whether its batch-mates fire.
+output does not depend on whether its batch-mates fire. The pieces between
+the decisions are functions of their own (``hypothesis_evidence``,
+``veto_ratio``, ``hypothesis_choice``, ``deblur_apply``), which the serving
+programs run as separate segments (serve/programs/). Every constant they
+read is copied to the device once (``_constants_on``), so none of them
+uploads anything while it runs.
 
 ``deblur_canvas_f32`` is the float HDR pre-pass of 16-bit PNG uploads: the
 same estimator, gates and backstop on [0, 1] f32 canvases, with the disk
@@ -167,6 +172,8 @@ def analysis_constants(size: int = ANALYSIS_SIZE):
 
     hann = (np.hanning(size)[:, None] * np.hanning(size)[None, :]).astype(np.float32)
     angles, nc_extra = psf_bank_meta()
+    # the recondition's mask: fade and colorShift zeroed on fire
+    conservative = np.asarray([1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0], np.float32)
     return dict(
         size=size,
         log_t_res=t_res.astype(np.float32),
@@ -183,6 +190,7 @@ def analysis_constants(size: int = ANALYSIS_SIZE):
         psfs=psfs,
         angles=angles,
         nc_extra=nc_extra,
+        conservative=conservative,
     )
 
 
@@ -258,7 +266,9 @@ def _percentile_high(x: torch.Tensor, q: float) -> torch.Tensor:
     n = x.shape[1]
     rank = q / 100.0 * (n - 1)
     lo = int(np.floor(rank))
-    frac = torch.tensor(rank - lo, dtype=x.dtype, device=x.device)
+    # the weight rounded to f32 on the host (no upload); 1 - frac in double
+    # rounds to the f32 difference, so the bytes are those of f32 arithmetic
+    frac = float(np.float32(rank - lo))
     k = n - lo
     top = torch.topk(x, k, dim=1).values
     v_lo = top[:, k - 1]
@@ -276,17 +286,17 @@ def _dir_ratio(crops: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
     return _percentile_high(g_along, 99.0) / (_percentile_high(g_perp, 99.0) + 1e-8)
 
 
-def select_hypothesis(
+def hypothesis_evidence(
     gray: torch.Tensor,
     valid_hw: torch.Tensor,
     compression: torch.Tensor,
     size: int = ANALYSIS_SIZE,
     enable_disk: bool = DISK_CHANNEL_ENABLED,
-    fires: dict | None = None,
-):
-    """Per-kind gated selection. Returns (best [B] int64, fire [B] bool).
-    ``fires``, a dict, receives under ``"deblur_veto"`` the [B] mask of the
-    images that passed the spectral motion gates, which the veto decides."""
+) -> dict:
+    """The spectral evidence and the per-kind gates up to the veto: a dict of
+    the corner crops, the best disk and motion hypotheses with their scores,
+    ``disk_ok``, ``mot_ok`` (the motion gate the veto decides) and the
+    noise ratio, all [B]-leading tensors."""
     c = _constants_on(gray.device, size)
     crops = _corner_crops(gray, valid_hw, size)
     corr, nc, noise_ratio = _spectral_evidence(crops, size)
@@ -294,7 +304,7 @@ def select_hypothesis(
     is_disk = c["is_disk"][None, :]
     is_axis = c["is_axis"]
     comp_pen = NC_COMPRESSION_SLOPE * compression
-    neg_inf = torch.tensor(-float("inf"), device=gray.device)
+    neg_inf = -float("inf")
 
     disk_corr = torch.where(is_disk, corr, neg_inf)
     best_disk = torch.argmax(torch.where(is_disk, nc, neg_inf), dim=1)
@@ -312,19 +322,45 @@ def select_hypothesis(
         + comp_pen
     )
     mot_ok = (m_corr >= CORR_MOTION_MIN) & (m_nc >= m_req)
+    return dict(crops=crops, best_disk=best_disk, d_nc=d_nc, disk_ok=disk_ok, best_mot=best_mot, m_nc=m_nc,
+                mot_ok=mot_ok, noise_ratio=noise_ratio)
 
-    if fires is not None:
-        fires["deblur_veto"] = mot_ok
-    if host_flag("deblur_veto", mot_ok.any()):
-        ratio = _dir_ratio(crops, c["angles"][best_mot])
-    else:
-        ratio = torch.zeros(crops.shape[0], dtype=crops.dtype, device=crops.device)
-    mot_ok = mot_ok & (ratio <= DIR_RATIO_MAX)
 
-    pick_mot = mot_ok & (~disk_ok | (m_nc > d_nc))
-    best = torch.where(pick_mot, best_mot, best_disk)
-    fire = (disk_ok | mot_ok) & (noise_ratio <= NOISE_RATIO_MAX)
+def veto_ratio(crops: torch.Tensor, best_mot: torch.Tensor, size: int = ANALYSIS_SIZE) -> torch.Tensor:
+    """The veto's firing side: each image's directional-gradient ratio along
+    its best motion hypothesis, [B]."""
+    return _dir_ratio(crops, _constants_on(crops.device, size)["angles"][best_mot])
+
+
+def hypothesis_choice(ev: dict, ratio: torch.Tensor):
+    """(best [B] int64, fire [B] bool) from ``hypothesis_evidence``'s dict
+    and the veto's ratio (zeros where the veto did not run)."""
+    mot_ok = ev["mot_ok"] & (ratio <= DIR_RATIO_MAX)
+    pick_mot = mot_ok & (~ev["disk_ok"] | (ev["m_nc"] > ev["d_nc"]))
+    best = torch.where(pick_mot, ev["best_mot"], ev["best_disk"])
+    fire = (ev["disk_ok"] | mot_ok) & (ev["noise_ratio"] <= NOISE_RATIO_MAX)
     return best, fire
+
+
+def select_hypothesis(
+    gray: torch.Tensor,
+    valid_hw: torch.Tensor,
+    compression: torch.Tensor,
+    size: int = ANALYSIS_SIZE,
+    enable_disk: bool = DISK_CHANNEL_ENABLED,
+    fires: dict | None = None,
+):
+    """Per-kind gated selection. Returns (best [B] int64, fire [B] bool).
+    ``fires``, a dict, receives under ``"deblur_veto"`` the [B] mask of the
+    images that passed the spectral motion gates, which the veto decides."""
+    ev = hypothesis_evidence(gray, valid_hw, compression, size, enable_disk)
+    if fires is not None:
+        fires["deblur_veto"] = ev["mot_ok"]
+    if host_flag("deblur_veto", ev["mot_ok"].any()):
+        ratio = veto_ratio(ev["crops"], ev["best_mot"], size)
+    else:
+        ratio = torch.zeros(gray.shape[0], dtype=ev["crops"].dtype, device=gray.device)
+    return hypothesis_choice(ev, ratio)
 
 
 def _batched_otf(psf_b: torch.Tensor, size_hw) -> torch.Tensor:
@@ -404,23 +440,52 @@ def deblur_canvas_f32(
     if h < size or w < size:
         return x
     best, fire = select_hypothesis(x.mean(dim=-1), valid_hw, compression, size, enable_disk=enable_disk)
+    return deblur_f32_apply(x, valid_hw, compression, best, fire)
+
+
+def deblur_f32_apply(x, valid_hw, compression, best, fire_pre) -> torch.Tensor:
+    """``deblur_canvas_f32`` after the selection: the Wiener inversion of the
+    images of ``fire_pre`` whose result passes the TV backstop, clipped to
+    [0, 1]; the others pass through."""
     raw = _wiener(x, best, compression)
-    fire = fire & (_tv(raw, valid_hw) <= TV_RATIO_MAX * _tv(x, valid_hw) + 1e-6)
+    fire = fire_pre & (_tv(raw, valid_hw) <= TV_RATIO_MAX * _tv(x, valid_hw) + 1e-6)
     return torch.where(fire[:, None, None, None], torch.clamp(raw, 0.0, 1.0), x)
 
 
-def deblur_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond, fires=None):
-    """The serving insertion: deblur the canvas, then rebuild conditioning.
-    On fire, structural scores come from the deconvolved canvas,
-    photometric ones from the original classification, and fade/colorShift
-    are zeroed; a non-firing image keeps its canvas and conditioning.
-    ``fires``, a dict, receives the [B] masks of the veto's gate
-    (``"deblur_veto"``) and of the images deblurred (``"deblur"``). Returns
-    (canvas_u8, cond)."""
-    from ..classify.fused import PHOTOMETRIC, batch_classify_and_condition, conditioning_from_scores
+def applies(shape) -> bool:
+    """Whether the stage runs on [B,H,W,C] canvases of ``shape``."""
+    _, h, w, _ = shape
+    return h >= ANALYSIS_SIZE and w >= ANALYSIS_SIZE
 
-    b, h, w, _ = canvas_u8.shape
-    if h < ANALYSIS_SIZE or w < ANALYSIS_SIZE:
+
+def deblur_apply(canvas_u8, valid_hw, is_jpeg_f, scores, cond, best, fire_pre):
+    """The stage's firing side: Wiener-invert the images of ``fire_pre`` whose
+    result passes the TV backstop, then rebuild their conditioning
+    (structural scores from the deconvolved canvas, photometric ones from
+    the original classification, fade and colorShift zeroed); a non-firing
+    image keeps its canvas and conditioning. Returns (canvas_u8, cond, fire)."""
+    from ..classify.fused import batch_classify_and_condition, conditioning_from_scores, photometric_on
+
+    x = canvas_u8.float() / 255.0
+    raw = _wiener(x, best, scores[:, 3])
+    fire = fire_pre & (_tv(raw, valid_hw) <= TV_RATIO_MAX * _tv(x, valid_hw) + 1e-6)
+    deblurred = torch.where(fire[:, None, None, None], _to_u8(raw), canvas_u8)
+
+    post_scores, _ = batch_classify_and_condition(deblurred.float(), valid_hw, is_jpeg_f)
+    photometric = photometric_on(scores.device)
+    mixed = post_scores * (1.0 - photometric) + scores * photometric
+    conservative = mixed * _constants_on(scores.device)["conservative"]
+    mixed = torch.where(fire[:, None], conservative, mixed)
+    return deblurred, torch.where(fire[:, None], conditioning_from_scores(mixed), cond), fire
+
+
+def deblur_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond, fires=None):
+    """The serving insertion: deblur the canvas, then rebuild conditioning
+    (``select_hypothesis``, the host branch, then ``deblur_apply`` when some
+    image fired). ``fires``, a dict, receives the [B] masks of the veto's
+    gate (``"deblur_veto"``) and of the images deblurred (``"deblur"``).
+    Returns (canvas_u8, cond)."""
+    if not applies(canvas_u8.shape):
         return canvas_u8, cond
     x = canvas_u8.float() / 255.0
     best, fire_pre = select_hypothesis(x.mean(dim=-1), valid_hw, scores[:, 3], fires=fires)
@@ -428,15 +493,7 @@ def deblur_and_recondition(canvas_u8, valid_hw, is_jpeg_f, scores, cond, fires=N
         if fires is not None:
             fires["deblur"] = fire_pre
         return canvas_u8, cond
-    raw = _wiener(x, best, scores[:, 3])
-    fire = fire_pre & (_tv(raw, valid_hw) <= TV_RATIO_MAX * _tv(x, valid_hw) + 1e-6)
+    canvas_u8, cond, fire = deblur_apply(canvas_u8, valid_hw, is_jpeg_f, scores, cond, best, fire_pre)
     if fires is not None:
         fires["deblur"] = fire
-    deblurred = torch.where(fire[:, None, None, None], _to_u8(raw), canvas_u8)
-
-    post_scores, _ = batch_classify_and_condition(deblurred.float(), valid_hw, is_jpeg_f)
-    photometric = torch.tensor(PHOTOMETRIC, device=scores.device)
-    mixed = post_scores * (1.0 - photometric) + scores * photometric
-    conservative = mixed * torch.tensor([1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0], device=scores.device)
-    mixed = torch.where(fire[:, None], conservative, mixed)
-    return deblurred, torch.where(fire[:, None], conditioning_from_scores(mixed), cond)
+    return canvas_u8, cond

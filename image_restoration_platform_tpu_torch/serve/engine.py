@@ -23,9 +23,20 @@ first slot. A mesh of one slot is the single-device path.
 The engine runs on ``device="cuda"`` (or its mesh's slots) unless the caller
 asks for the CPU; it never falls back to the CPU by itself, and loading a
 family on a card first checks the attention shapes it will launch
-(``models.registry.check_attention_shapes``). The executable disk cache
-(serve/exec_cache.py) has no counterpart: it stores compiled XLA
-executables, and an eager program has none.
+(``models.registry.check_attention_shapes``).
+
+Every single-device surface goes through the executable tier
+(serve/exec_cache.py), as the reference's ``_aot_executable`` does: one
+executable per structural key (``_exec_key``), built once under a
+single-flight gate and counted in ``compile_count``. On a card an
+executable is the program's segments, split at the three stage decisions,
+captured as CUDA graphs and replayed; on the CPU it is the same segments run
+eagerly. ``eager=True`` runs them eagerly on the card too, for comparisons;
+a capture that fails raises. One lock (``_run_lock``) is held from the copy
+into an executable's static inputs, through its replays and host flags, to
+the enqueue of the packed copy of its outputs, so two batches in flight
+never share the static buffers; the fetch runs outside it. The mesh data
+paths stay eager (under the same lock).
 """
 
 from __future__ import annotations
@@ -46,7 +57,9 @@ from ..obs.tracing import device_trace, get_tracer
 from ..parallel.mesh import AXIS_DATA, AXIS_SPATIAL
 from ..parallel.sharding import gather, replicate, shard_params, split_batch
 from ..utils.logging import get_logger
+from .exec_cache import EagerExecutable, ExecCache, GraphExecutable, exec_key
 from .programs.restore import STAGE_FIRES
+from .programs.restore import fire_flags as _fire_flags
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -78,6 +91,12 @@ def _pack(tensors) -> torch.Tensor:
     return torch.cat([t.contiguous().view(torch.uint8).reshape(-1) for t in tensors])
 
 
+def _host(array: np.ndarray) -> torch.Tensor:
+    """A host tensor over ``array`` (C-contiguous and writable, copied only
+    where it is not), for an executable to copy to the device."""
+    return torch.from_numpy(np.require(array, requirements=("C", "W")))
+
+
 def _unpack(host: np.ndarray, tensors) -> list[np.ndarray]:
     """The arrays of ``_pack(tensors)`` fetched as ``host``, in the tensors'
     shapes and types."""
@@ -97,13 +116,6 @@ def _batch_bucket(n: int, max_batch: int) -> int:
     return b
 
 
-def _fire_flags(fires: dict, rows: int, device: torch.device) -> torch.Tensor:
-    """[rows, len(STAGE_FIRES)] u8 of the stages' fire masks (0 where a
-    stage did not run)."""
-    zeros = torch.zeros(rows, dtype=torch.bool, device=device)
-    return torch.stack([fires.get(name, zeros) for name in STAGE_FIRES], dim=1).to(torch.uint8)
-
-
 class RestorationEngine:
     def __init__(
         self,
@@ -113,9 +125,12 @@ class RestorationEngine:
         param_cache: ParamCache | None = None,
         seed: int = 0,
         mesh=None,
+        eager: bool = False,
     ):
         """``device`` defaults to "cuda", or with a ``mesh`` to its first
-        slot (a device of another type raises)."""
+        slot (a device of another type raises). ``eager`` runs the programs
+        eagerly on a card instead of replaying their CUDA graphs, to compare
+        the two; on the CPU the programs always run eagerly."""
         if mesh is not None:
             if device is not None and torch.device(device).type != mesh.primary.type:
                 raise ValueError(f"engine device {device} is not on the mesh's slots ({mesh.primary})")
@@ -138,12 +153,22 @@ class RestorationEngine:
         self._replicas: dict[tuple, list[torch.nn.Module]] = {}
         self._programs: dict = {}
         self._lock = threading.Lock()
+        self.eager = eager
+        self._exec_cache = ExecCache()
+        self._run_lock = threading.Lock()  # static buffers: one executable runs at a time
+        self._graph_pool = None  # every graph's memory pool, made at the first capture
         self.device_seconds_total = 0.0
         self._acct_lock = threading.Lock()
         self._device_busy_until = 0.0
         # the diffusion sampler's noise source, in place of a split PRNG key
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._rng_lock = threading.Lock()
+
+    @property
+    def compile_count(self) -> int:
+        """Executables built (cache misses), as the reference counts its
+        XLA compiles."""
+        return self._exec_cache.compile_count
 
     def _account_device_time(self, t0: float) -> float:
         """Record a device-busy span [t0, now], clipped to start no earlier
@@ -221,6 +246,42 @@ class RestorationEngine:
             ),
         )
 
+    # ---------------------------------------------------- executable tier
+
+    def _exec_key(self, tag, args, egress: str | None = None) -> tuple:
+        """The executable's key: the tag, the flags that change the
+        program's structure (the gated stages add or remove segments, s2d
+        IO changes the backbone's layout), the egress, then the arguments'
+        shapes and types. The HDR pre-pass has no such structure."""
+        family_name = tag if isinstance(tag, str) else tag[1]
+        if isinstance(tag, tuple) and tag[0] == "hdr_deblur":
+            structural: tuple = ()
+        else:
+            structural = (
+                ("stages", self.config.deblur, self.config.deblock),
+                ("s2d_io", self._uses_s2d_io(family_name)),
+            )
+        if egress is not None:
+            structural += (("egress", egress),)
+        return exec_key(tag, structural, args)
+
+    def _executable(self, tag, args, program, model, egress: str | None = None):
+        """The executable of ``program`` for ``args`` (host tensors), built
+        on first use (single flight, counted in ``compile_count``)."""
+        return self._exec_cache.get(self._exec_key(tag, args, egress), lambda: self._build(program, model, args))
+
+    def _build(self, program, model, args):
+        if self.device.type != "cuda" or self.eager:
+            return EagerExecutable(program, model, self.device)
+        with self._run_lock:  # no replay may run while a capture allocates from the shared pool
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            return GraphExecutable(program, model, args, self.device, self._graph_pool)
+
+    def exec_stats(self) -> dict:
+        """compile_count, the executables built and the CUDA graphs captured."""
+        return {"compile_count": self.compile_count, **self._exec_cache.stats()}
+
     # ------------------------------------------------------------ serving
 
     def restore_batch(
@@ -282,32 +343,32 @@ class RestorationEngine:
         t0 = time.perf_counter()
         trace_label = f"restore/{family_name}/{canvas_u8.shape[1]}x{canvas_u8.shape[2]}b{bucket}"
         with device_trace(trace_label):
-            args = (
-                self._to_device(canvas_u8),
-                torch.from_numpy(valid_hw).to(self.device),
-                torch.from_numpy(is_jpeg_f).to(self.device),
-            )
+            args = (_host(canvas_u8), torch.from_numpy(valid_hw), torch.from_numpy(is_jpeg_f))
             if family_name == "diffusion-restore":
-                with self._rng_lock:
+                with self._rng_lock:  # drawn outside any graph, copied into its static input
                     noise = torch.randn(
                         tuple(args[0].shape), generator=self._generator, device=self.device, dtype=self.dtype
                     )
                 args += (noise,)
             if dp == 1:
-                fires: dict = {}
-                out, scores = program(model, *args, fires=fires)
-                flags = _fire_flags(fires, bucket, self.device)
+                executable = self._executable(family_name, args, program, model, egress)
+                with self._run_lock:
+                    outs = executable(args)  # (*out, scores, flags)
+                    packed = _pack(outs)
             else:
-                out, scores, flags = self._run_data_parallel(family_name, program, args)
-            outs = out if isinstance(out, tuple) else (out,)
-            packed = _pack([*outs, scores, flags])
+                with self._run_lock:
+                    out, scores, flags = self._run_data_parallel(
+                        family_name, program, tuple(a.to(self.device) for a in args)
+                    )
+                    outs = (*(out if isinstance(out, tuple) else (out,)), scores, flags)
+                    packed = _pack(outs)
 
         def fetch():
             t_fetch = time.perf_counter()
             host = packed.cpu().numpy()
             wall_s = time.perf_counter() - t0
             device_s = self._account_device_time(t0)
-            *arrays, scores_h, flags_h = (a[:n] for a in _unpack(host, [*outs, scores, flags]))
+            *arrays, scores_h, flags_h = (a[:n] for a in _unpack(host, outs))
             counters = get_counters()
             for name, count in zip(STAGE_FIRES, flags_h.sum(axis=0, dtype=np.int64)):
                 counters.inc(f"stage_fires.{name}", int(count))
@@ -320,7 +381,7 @@ class RestorationEngine:
                 "batchOccupancy": n / bucket,
                 "family": family_name,
             }
-            if isinstance(out, tuple):  # yuv420 plane egress
+            if len(arrays) > 1:  # yuv420 plane egress
                 return tuple(arrays), scores_h, meta
             return arrays[0], scores_h, meta
 
@@ -352,14 +413,15 @@ class RestorationEngine:
     SR_TILED_CANVAS = 2048  # the documented 2K -> 4K bucket
 
     def _run_sync(self, label: str, run, family_name: str, **extra):
-        """Run a device program, fetch its outputs in one synchronising
-        copy and assemble the standard meta with overlap-corrected
-        deviceSeconds. ``run()`` returns a tensor or a tuple of tensors."""
+        """Run a device program under the run lock, fetch its outputs in one
+        synchronising copy and assemble the standard meta with
+        overlap-corrected deviceSeconds. ``run()`` returns a tuple of
+        tensors; so does this, as arrays."""
         t0 = time.perf_counter()
         with device_trace(label):
-            out = run()
-            outs = out if isinstance(out, tuple) else (out,)
-            packed = _pack(outs)
+            with self._run_lock:
+                outs = run()
+                packed = _pack(outs)
             t_fetch = time.perf_counter()
             arrays = _unpack(packed.cpu().numpy(), outs)
         device_s = self._account_device_time(t0)
@@ -370,10 +432,15 @@ class RestorationEngine:
             "family": family_name,
             **extra,
         }
-        return (tuple(arrays) if isinstance(out, tuple) else arrays[0]), meta
+        return tuple(arrays), meta
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.require(array, requirements=("C", "W"))).to(self.device)
+        return _host(array).to(self.device)
+
+    def _run_executable(self, label: str, tag, program, model, args, family_name: str, **extra):
+        """``_run_sync`` of the executable of ``tag`` for ``args``."""
+        executable = self._executable(tag, args, program, model)
+        return self._run_sync(label, lambda: executable(args), family_name, **extra)
 
     def fuse_batch(
         self,
@@ -395,13 +462,13 @@ class RestorationEngine:
         )
         get_counters().inc(f"fusion_batches.{canvas_u8.shape[1]}")
         args = (
-            self._to_device(canvas_u8),
-            torch.from_numpy(np.asarray(valid_hw, np.int32)).to(self.device),
-            torch.from_numpy(np.asarray(is_jpeg, np.float32)).to(self.device),
+            _host(canvas_u8),
+            torch.from_numpy(np.asarray(valid_hw, np.int32)),
+            torch.from_numpy(np.asarray(is_jpeg, np.float32)),
         )
-        (fused, scores), meta = self._run_sync(
-            f"fuse/{family_name}/k{k}/{canvas_u8.shape[1]}",
-            lambda: program(model, *args), family_name, fusionInputs=k,
+        (fused, scores), meta = self._run_executable(
+            f"fuse/{family_name}/k{k}/{canvas_u8.shape[1]}", ("fusion", family_name), program, model, args,
+            family_name, fusionInputs=k,
         )
         return fused, scores, meta
 
@@ -409,16 +476,21 @@ class RestorationEngine:
         self, x_f32: np.ndarray, valid_hw: np.ndarray, compression: np.ndarray
     ) -> tuple[np.ndarray, dict]:
         """Float Wiener deblur with the disk channel on: the 16-bit PNG
-        pre-pass (ops/deblur.py deblur_canvas_f32). x_f32 [N,B,B,3] in
-        [0, 1], before any 8-bit quantization."""
-        from ..ops.deblur import deblur_canvas_f32
+        pre-pass (ops/deblur.py deblur_canvas_f32, as the segments of
+        ``build_hdr_deblur_program``). x_f32 [N,B,B,3] in [0, 1], before any
+        8-bit quantization."""
+        from .programs import build_hdr_deblur_program
 
+        program = self._cached_program(("hdr_deblur",), build_hdr_deblur_program)
         args = (
-            self._to_device(np.asarray(x_f32, np.float32)),
-            torch.from_numpy(np.asarray(valid_hw, np.int32)).to(self.device),
-            torch.from_numpy(np.asarray(compression, np.float32)).to(self.device),
+            _host(np.asarray(x_f32, np.float32)),
+            torch.from_numpy(np.asarray(valid_hw, np.int32)),
+            torch.from_numpy(np.asarray(compression, np.float32)),
         )
-        return self._run_sync(f"hdr_deblur/{x_f32.shape[1]}", lambda: deblur_canvas_f32(*args), "hdr_deblur")
+        (out,), meta = self._run_executable(
+            f"hdr_deblur/{x_f32.shape[1]}", ("hdr_deblur", x_f32.shape[1]), program, None, args, "hdr_deblur"
+        )
+        return out, meta
 
     def sr_batch(self, imgs_u8: np.ndarray, family_name: str = "sr-x2") -> tuple[np.ndarray, dict]:
         """Super-resolution batch [N,H,W,3] u8 -> [N,H*scale,W*scale,3] u8
@@ -426,11 +498,11 @@ class RestorationEngine:
         model = self.model(family_name)
         program = self._program(family_name, "rgb")
         get_counters().inc(f"sr_batches.{imgs_u8.shape[1]}")
-        imgs = self._to_device(imgs_u8)
-        return self._run_sync(
-            f"sr/{family_name}/{imgs_u8.shape[1]}x{imgs_u8.shape[2]}",
-            lambda: program(model, imgs), family_name,
+        (out,), meta = self._run_executable(
+            f"sr/{family_name}/{imgs_u8.shape[1]}x{imgs_u8.shape[2]}", ("sr", family_name), program, model,
+            (_host(imgs_u8),), family_name,
         )
+        return out, meta
 
     def sr_tiled(
         self,
@@ -450,9 +522,11 @@ class RestorationEngine:
         from .programs import build_sr_tiled_mesh_program, build_sr_tiled_program
 
         size = canvas_u8.shape[0]
+        get_counters().inc(f"sr_tiled_calls.{size}")
+        label = f"sr_tiled/{family_name}/{size}t{tile}"
         if self._is_multi_device():
-            model = self._data_replicas(family_name)
-            slots = [self.mesh.tensor_slots(i)[0] for i in range(len(model))]
+            models = self._data_replicas(family_name)
+            slots = [self.mesh.tensor_slots(i)[0] for i in range(len(models))]
             program = self._cached_program(
                 ("sr_tiled_mesh", family_name, tile, overlap, tile_batch, output),
                 lambda: build_sr_tiled_mesh_program(
@@ -460,21 +534,27 @@ class RestorationEngine:
                     tile_batch=tile_batch, output=output,
                 ),
             )
+            canvas = self._to_device(canvas_u8)
+
+            def run():
+                out = program(models, canvas)
+                return out if isinstance(out, tuple) else (out,)
+
+            outs, meta = self._run_sync(label, run, family_name, tile=tile, overlap=overlap)
         else:
-            model = self.model(family_name)
+            tag = ("sr_tiled", family_name, tile, overlap, tile_batch, output)
             program = self._cached_program(
-                ("sr_tiled", family_name, tile, overlap, tile_batch, output),
+                tag,
                 lambda: build_sr_tiled_program(
                     family_name, dtype=self.dtype, tile=tile, overlap=overlap, tile_batch=tile_batch,
                     output=output,
                 ),
             )
-        get_counters().inc(f"sr_tiled_calls.{size}")
-        canvas = self._to_device(canvas_u8)
-        return self._run_sync(
-            f"sr_tiled/{family_name}/{size}t{tile}",
-            lambda: program(model, canvas), family_name, tile=tile, overlap=overlap,
-        )
+            outs, meta = self._run_executable(
+                label, tag, program, self.model(family_name), (_host(canvas_u8),), family_name,
+                tile=tile, overlap=overlap,
+            )
+        return (outs if output == "yuv420" else outs[0]), meta
 
     def sr_spatial(self, canvas_u8: np.ndarray, family_name: str = "sr-x2") -> tuple[np.ndarray, dict]:
         """Super-resolve ONE [H,W,3] u8 canvas row-sharded over the mesh's
@@ -501,8 +581,8 @@ class RestorationEngine:
         models = self._spatial_replicas(family_name)
         get_counters().inc(f"sr_spatial_calls.{h}")
         canvas = self._to_device(canvas_u8)
-        out, meta = self._run_sync(
-            f"sr_spatial/{family_name}/{h}", lambda: program(models, canvas), family_name,
+        (out,), meta = self._run_sync(
+            f"sr_spatial/{family_name}/{h}", lambda: (program(models, canvas),), family_name,
             spatialShards=sp, halo=halo, paddedRows=pad_rows,
         )
         return (out[: h_in * scale] if pad_rows else out), meta

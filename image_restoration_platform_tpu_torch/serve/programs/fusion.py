@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ...classify.fused import batch_classify_and_condition
+from .segments import Piece, Program
 
 
 def build_fusion_program(family_name: str, *, dtype: torch.dtype):
@@ -17,17 +18,18 @@ def build_fusion_program(family_name: str, *, dtype: torch.dtype):
 
     Each image is classified and restored, then blended with per-image
     weights from its degradation scores: cleaner inputs (low blur, noise and
-    lowLight) dominate the composite."""
+    lowLight) dominate the composite. One segment (no stage decision)."""
 
-    def program(model, canvas, valid_hw, is_jpeg_f):
-        with torch.inference_mode():
-            scores, cond = batch_classify_and_condition(canvas.float(), valid_hw, is_jpeg_f)
-            x = canvas.to(dtype) / 255.0
+    def pieces(model, shapes):
+        def run(s):
+            scores, cond = batch_classify_and_condition(s["canvas"].float(), s["valid_hw"], s["is_jpeg"])
+            x = s["canvas"].to(dtype) / 255.0
             restored = torch.clamp(model(x, cond.to(dtype)).float(), 0.0, 1.0)
             quality = 1.0 - (scores[:, 0] + scores[:, 1] + scores[:, 2]) / 3.0
             weights = torch.softmax(4.0 * quality.float(), dim=0)
             fused = (weights[:, None, None, None] * restored).sum(dim=0)
-            fused_u8 = torch.round(torch.clamp(fused, 0.0, 1.0) * 255.0).to(torch.uint8)
-            return fused_u8, scores
+            return {"fused": torch.round(torch.clamp(fused, 0.0, 1.0) * 255.0).to(torch.uint8), "scores": scores}
 
-    return program
+        return [Piece(run)]
+
+    return Program(("canvas", "valid_hw", "is_jpeg"), pieces, ("fused", "scores"))

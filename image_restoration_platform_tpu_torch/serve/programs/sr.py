@@ -24,6 +24,8 @@ from ...parallel.halo import spatial_shard_model_apply
 from ...parallel.mesh import AXIS_SPATIAL
 from ...parallel.sharding import gather, split_batch
 from .egress import to_yuv420
+from .restore import PLANES
+from .segments import Piece, Program
 
 
 def _emit(out: torch.Tensor, output: str):
@@ -38,23 +40,26 @@ def build_sr_tiled_program(
 ):
     """``fn(model, canvas [H,W,3] u8)`` -> the RGB u8 canvas at
     ``[H*scale, W*scale, 3]``, or with ``output="yuv420"`` its (Y, Cb, Cr)
-    u8 planes."""
+    u8 planes: one segment, the blend kernel's launch inside it."""
     if output not in ("rgb", "yuv420"):
         raise ValueError(f"unknown output {output!r}")
     scale = get_family(family_name).config.scale
 
-    def program(model, canvas):
+    def pieces(model, shapes):
         def per_tiles(tiles):
             # the limiter's f32 output goes straight to the 255 scaling
             return model(tiles.to(dtype) / 255.0).float() * 255.0
 
-        with torch.inference_mode():
+        def run(s):
             out = tiled_apply(
-                canvas.float(), per_tiles, tile=tile, overlap=overlap, scale=scale, tile_batch=tile_batch,
+                s["canvas"].float(), per_tiles, tile=tile, overlap=overlap, scale=scale, tile_batch=tile_batch,
             )
-            return _emit(out, output)
+            emitted = _emit(out, output)
+            return dict(zip(PLANES, emitted)) if output == "yuv420" else {"out": emitted}
 
-    return program
+        return [Piece(run)]
+
+    return Program(("canvas",), pieces, PLANES if output == "yuv420" else ("out",))
 
 
 def build_sr_tiled_mesh_program(

@@ -1,13 +1,18 @@
 """Boot-time warm-up across every documented serving surface.
 
-Counterpart of image_restoration_platform_tpu/serve/warmup.py. The programs
-are eager, so warming runs each one once: the first launch builds the CUDA
-kernels with nvcc and fills cuDNN's plan caches, and the first request does
-not pay for that. Restore-style families warm every (size bucket x
-power-of-two batch bucket) the micro-batcher can form; SR families warm the
-direct path plus the tiled 2K->4K canvas in both egress modes; the
-``"fusion"`` pseudo-surface warms k-image fuse_batch (SERVE_WARMUP /
-SERVE_WARMUP_FAMILIES, api/app.py).
+Counterpart of image_restoration_platform_tpu/serve/warmup.py. Warming a
+surface serves it once, which builds its executable (serve/exec_cache.py):
+on a card the kernels' nvcc builds, the cuDNN and cuFFT plans and the CUDA
+graphs of every segment and BOTH branches of every stage decision, whatever
+the warming input fires (zero images fire nothing; the reference's
+``lax.cond`` compiles both branches into one executable for the same
+reason). So no request builds anything. Restore-style families warm every
+(size bucket x power-of-two batch bucket) the micro-batcher can form, in RGB
+and, where the restorator takes it, YCbCr-plane egress; SR families warm the direct path plus the tiled 2K->4K canvas in both egress
+modes; the ``"fusion"`` pseudo-surface warms k-image fuse_batch
+(SERVE_WARMUP / SERVE_WARMUP_FAMILIES, api/app.py). The largest shapes go
+first: every graph of an engine shares one memory pool, which then settles
+at the largest graph's working memory.
 """
 
 from __future__ import annotations
@@ -25,18 +30,35 @@ def _batch_buckets(max_batch: int) -> tuple[int, ...]:
     return tuple(batches)
 
 
+def _largest_first(values) -> tuple[int, ...]:
+    return tuple(sorted(values, reverse=True))
+
+
+def _restore_egresses(engine, family_name: str) -> tuple[str, ...]:
+    """The egresses the restorator serves a restore family in: RGB, and the
+    YCbCr planes where they go straight to the native JPEG encoder
+    (serve/restorator.py)."""
+    from .. import imageio
+
+    if (family_name != "diffusion-restore" and engine.config.restore_egress == "yuv420"
+            and imageio.native_available()):
+        return ("rgb", "yuv420")
+    return ("rgb",)
+
+
 def warmup_restore(engine, family_name="restore-unet", sizes=None, batches=None) -> float:
     """Warm the restore programs for the serving buckets; returns seconds.
     Defaults to every power-of-two batch bucket up to max_batch: cuDNN picks
     its plans per shape, so a warm start that only covered b1 would still pay
     on the first batched burst per size."""
-    sizes = sizes or engine.config.size_buckets
-    batches = batches or _batch_buckets(engine.config.max_batch)
+    sizes = _largest_first(sizes or engine.config.size_buckets)
+    batches = _largest_first(batches or _batch_buckets(engine.config.max_batch))
     t0 = time.perf_counter()
     for size in sizes:
         for batch in batches:
             imgs = np.zeros((batch, size, size, 3), dtype=np.uint8)
-            engine.restore_batch(imgs, family_name=family_name)
+            for egress in _restore_egresses(engine, family_name):
+                engine.restore_batch(imgs, family_name=family_name, egress=egress)
     warm_s = time.perf_counter() - t0
     engine.logger.info(
         "Warmup complete",
@@ -58,8 +80,8 @@ def warmup_serving(
     SR families warm the direct path at buckets <= SR_TILE_THRESHOLD plus
     the tiled canvas — the routes _restore_sr actually takes
     (serve/restorator.py)."""
-    sizes = sizes or engine.config.size_buckets
-    batches = batches or _batch_buckets(engine.config.max_batch)
+    sizes = _largest_first(sizes or engine.config.size_buckets)
+    batches = _largest_first(batches or _batch_buckets(engine.config.max_batch))
     report: dict[str, float] = {}
 
     def timed(tag, fn):
@@ -100,10 +122,12 @@ def warmup_serving(
             for size in sizes:
                 for batch in batches:
                     imgs = np.zeros((batch, size, size, 3), dtype=np.uint8)
-                    timed(
-                        f"{fam}/restore/{size}/b{batch}",
-                        lambda i=imgs, f=fam: engine.restore_batch(i, family_name=f),
-                    )
+                    for egress in _restore_egresses(engine, fam):
+                        tag = "restore" if egress == "rgb" else f"restore-{egress}"
+                        timed(
+                            f"{fam}/{tag}/{size}/b{batch}",
+                            lambda i=imgs, f=fam, e=egress: engine.restore_batch(i, family_name=f, egress=e),
+                        )
     engine.logger.info(
         "Serving warmup complete",
         {"surfaces": len(report), "seconds": round(sum(report.values()), 1)},
