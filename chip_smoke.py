@@ -64,15 +64,25 @@ failure (exit code 1):
 6. training: ``Trainer`` on the shipped flagship's own recipe
    (scripts/queues/r5_anchor.json: restore-unet, batch 32, 128 px, warm
    start) in a temporary ``IRP_WEIGHTS_DIR`` holding copies of the shipped
-   weights: 3 warm-up steps, then 20 steps with the attention kernel's count
-   set to 0 before and read after (one launch per step; two in a step with
-   ``remat``), the train step and ``synthetic_batch`` timed apart with CUDA
-   events, images/s, peak memory and a profiled step; the loss and global
-   gradient norm on the card against the CPU on one batch (f32 against f32,
-   bf16 against bf16, and bf16's loss gap to f32 against the JAX
-   trainer's); two steps each of sr-x2, diffusion-restore (x0 and eps) and
-   the sampler-aware loss; the npz export round trip and a checkpoint
-   resume; ``main()`` with ``TRAIN_STEPS=2``;
+   weights. The trainer's executable tier (train/exec.py: the train step
+   as one CUDA graph, each of the recipe's three data distributions as
+   one) against ``Trainer(eager=True)``, with cuDNN's deterministic
+   algorithms on both sides: 8 steps in lockstep (batches and losses equal
+   bit for bit, one attention launch a step on each side, ``compile_count``
+   1 + 3 and flat), a checkpoint saved at step 4 and resumed into a graph
+   trainer that had built and stepped (the uninterrupted losses bit for
+   bit), ``remat`` (two launches a step), and three steps each of sr-x2,
+   diffusion-restore (x0 and eps) and the sampler-aware loss at b8. Then,
+   with cuDNN's defaults, graph and eager trainers warmed (5 steps: every
+   executable built) and timed in blocks of 10 steps (eager, graph, graph,
+   eager), the attention kernel's count set to 0 before the graph blocks and
+   read after (one launch per step), the train step and ``synthetic_batch``
+   timed apart with CUDA events, images/s, peak memory, the graph build's
+   memory and one profiled step of each; the loss and global gradient norm
+   on the card against the CPU on one batch (f32 against f32, bf16 against
+   bf16, and bf16's loss gap to f32 against the JAX trainer's); fused AdamW
+   on the card against the CPU; the npz export round trip; ``main()`` with
+   ``TRAIN_STEPS=2`` (graphs);
 7. mesh: the mesh surfaces on slot meshes that repeat the card
    (``make_mesh([cuda:0] * 4, ...)``; the slots share one stream, so their
    times show the cost of a mesh path, not scaling), bf16, shipped weights,
@@ -114,8 +124,8 @@ failure (exit code 1):
    eager) with one profiled step each: kernel ms, kernels, the host's
    kernel-launch and graph-launch calls, idle share.
 
-Every engine replays CUDA graphs by default (the executable tier), so
-phases 3-8 run on graphs; the launch counts read the kernels' counters,
+Every engine and trainer replays CUDA graphs by default (the executable
+tier), so phases 3-8 run on graphs; the launch counts read the kernels' counters,
 which every graph replay advances by the launches its capture recorded.
 Phase 2 also holds the kernel at the training shapes ([32, 4, 256, 64] and
 [32, 4, 1024, 64] bf16) and checks the gradients through ``FlashAttention``
@@ -124,9 +134,9 @@ plain forward at [32, 4, 256, 64].
 
 ``--report PATH`` also writes the full report as JSON to PATH;
 ``--kernels-only`` stops after phase 2 (a quick check of a changed kernel),
-and ``--mesh-only``, ``--quality-only`` and ``--graphs-only`` run phase 7,
-phase 8 or phase 9 (after its own warm-up) alone after the builds; they
-print no result lines and exit 0 or 1. The last
+and ``--train-only``, ``--mesh-only``, ``--quality-only`` and
+``--graphs-only`` run phase 6, 7, 8 or 9 (after its own warm-up) alone after
+the builds; they print no result lines and exit 0 or 1. The last
 lines of standard output are the card line, the kernels JSON line, and
 {"ok": true, "device": {...}}.
 """
@@ -235,7 +245,17 @@ TRAIN_ENV = {  # the same recipe as the entry point reads it
     "TRAIN_DATA_COMP_SOLO": "0.3", "TRAIN_DATA_LOWLIGHT_SOLO": "0.18", "TRAIN_ANCHOR_COMP": "0.5",
     "TRAIN_BATCH": "32", "TRAIN_SIZE": "128", "TRAIN_LR": "2e-5", "TRAIN_IDENTITY_WEIGHT": "6.0", "TRAIN_SEED": "601",
 }
-TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 3, 20
+# the main path: warm-up steps until every executable of the r5 mix is built
+# (its rich distribution first comes at step 5), then 20 timed steps of each
+# trainer in blocks of 10 (eager, graph, graph, eager)
+TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 5, 20
+# graph against eager: 8 steps (the three distributions), a checkpoint
+# saved before step 5 and resumed into a graph trainer that has built and
+# stepped; TRAIN_GRAPH_WARMUP is train/exec.py's WARMUP_STEPS (a step that
+# builds the graph launches the attention kernel that many times more)
+TRAIN_COMPARE_STEPS, TRAIN_RESUME_AT, TRAIN_GRAPH_WARMUP = 8, 4, 2
+# the optimizer card against CPU: one tensor of this size, five steps
+TRAIN_OPT_SIZE = 1 << 20
 # card against CPU: the same warm weights, one batch of 4 at 128 px drawn on
 # the CPU. In f32 (TF32 off) the loss within 2 %, the global gradient norm
 # within 5 % and the gradients' cosine >= 0.99; in bf16 the loss within 2 % of
@@ -248,22 +268,18 @@ TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 3, 20
 # is printed, not held
 TRAIN_CPU_BATCH, TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_COSINE = 4, 0.02, 0.05, 0.99
 TRAIN_REFERENCE_BF16_GAP, TRAIN_GAP_RTOL = 0.06271, 0.10
-# the other branches: two steps each at batch 8, 128 px, and the attention
-# launches each makes (SR has no attention; the diffusion UNet attends once a
-# forward at 32 x 32 tokens; the sampler-aware loss runs two forwards)
-TRAIN_BRANCHES = (("sr-x2", "sr-x2", {}, 0), ("diffusion_x0", "diffusion-restore", {}, 2),
-                  ("diffusion_eps", "diffusion-restore", {}, 2),
-                  ("sampler_aware", "diffusion-restore", {"diffusion_sampler_steps": 2}, 4))
+# the other branches: three steps each at batch 8, 128 px, graph against
+# eager, and the attention launches of each step (SR has no attention; the
+# diffusion UNet attends once a forward at 32 x 32 tokens; the sampler-aware
+# loss runs two forwards)
+TRAIN_BRANCHES = (("sr-x2", "sr-x2", {}, 0), ("diffusion_x0", "diffusion-restore", {}, 1),
+                  ("diffusion_eps", "diffusion-restore", {}, 1),
+                  ("sampler_aware", "diffusion-restore", {"diffusion_sampler_steps": 2}, 2))
 # the export round trip: fp16 storage moves a weight by at most 2^-11 of it
 # (2^-25 below fp16's normal range); the f32 forward on the stored weights
 # stays within one level of the trained weights' (every shipped checkpoint is
 # served from fp16 storage; a CPU rehearsal at 32 px measured 0.44 level)
 EXPORT_PARAM_RTOL, EXPORT_PARAM_ATOL, EXPORT_OUT_ATOL = 2.0**-11, 2.0**-25, 1.0 / 255
-# a checkpoint resumed and stepped once against the trainer stepped once: the
-# restored state equal, and the step's parameters equal up to cuDNN's
-# nondeterministic weight gradients, which Adam scales to ~lr on elements
-# whose gradient is near 0: at most 0.1 % of elements off by more than 1 % of lr
-RESUME_FAR_SHARE = 1e-3
 
 
 def fail(message: str) -> None:
@@ -1078,13 +1094,88 @@ def _kernel_split(torch, prof, skip: tuple = ("Optimizer.",)) -> tuple[float, in
     return sum(split.values()), sum(e.count for e in kernels), split, top
 
 
+def _train_pair(cfg, **kw):
+    """A graph trainer and its eager twin on ``cfg`` (the same seed, so the
+    same weights and data stream)."""
+    from image_restoration_platform_tpu_torch.train import Trainer
+
+    graph = Trainer(cfg, device="cuda", **kw)
+    eager = Trainer(cfg, device="cuda", eager=True, **kw)
+    check(not graph.eager and eager.eager, "the graph trainer must replay graphs and its twin run eagerly")
+    return graph, eager
+
+
+def _train_compare(torch, graph, eager, steps: int, launches_per_step: int, on_step=None) -> list:
+    """``steps`` steps of each trainer in lockstep: the batches and the
+    losses equal bit for bit, the attention launches of each step counted
+    apart (a step that builds the graph also counts its warm-up steps);
+    ``on_step(k)`` runs before step k."""
+    from image_restoration_platform_tpu_torch.ops.cuda.attention import flash_kernel
+
+    rows = []
+    for k in range(steps):
+        if on_step is not None:
+            on_step(k)
+        builds = graph.compile_count
+        batch_g, batch_e = graph.next_batch(), eager.next_batch()
+        same_batch = all(torch.equal(a, b) for a, b in zip(batch_g, batch_e))
+        _zero_launches(flash_kernel)
+        loss_g = graph.train_step(batch_g).clone()
+        launches_g = flash_kernel.launches
+        _zero_launches(flash_kernel)
+        loss_e = eager.train_step(batch_e)
+        launches_e = flash_kernel.launches
+        rows.append({"step": graph.state.step, "batch_equal": same_batch, "loss_graph": float(loss_g),
+                     "loss_eager": float(loss_e), "launches_graph": launches_g, "launches_eager": launches_e,
+                     "step_built": graph.compile_count > builds and k == 0, "compile_count": graph.compile_count})
+    for row in rows:
+        check(row["batch_equal"] and row["loss_graph"] == row["loss_eager"], f"graph against eager: {row}")
+        check(row["launches_eager"] == launches_per_step, f"eager attention launches: {row}")
+        # the build's warm-up steps launch too; a replay launches what its capture recorded
+        want = launches_per_step * (1 + TRAIN_GRAPH_WARMUP if row["step_built"] else 1)
+        check(row["launches_graph"] == want, f"graph attention launches: {row}, want {want}")
+    params_equal = all(torch.equal(a, b) for a, b in zip(graph.state.model.parameters(),
+                                                         eager.state.model.parameters()))
+    check(params_equal, "graph and eager trainers' parameters differ")
+    return rows
+
+
+def _timed_steps(torch, trainer, steps: int) -> dict:
+    """``steps`` steps through ``next_batch`` and ``train_step``, the draw
+    and the step timed apart with CUDA events, host wall clock around all;
+    the memory allocated before them and the peak in them (a graph's
+    activations live in its pool, reserved and not allocated, between
+    replays)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(steps)]
+    losses = []
+    t = time.perf_counter()
+    for start, mid, end in events:
+        start.record()
+        batch = trainer.next_batch()
+        mid.record()
+        losses.append(trainer.train_step(batch).clone())
+        end.record()
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t, "data_ms": [a.elapsed_time(b) for a, b, _ in events],
+            "step_ms": [b.elapsed_time(c) for _, b, c in events], "losses": torch.stack(losses).cpu().tolist(),
+            "allocated_before_gib": before / 2**30, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
 def phase_train(torch, np, report, card):
     """The trainer on the card: the r5-anchor recipe at full width through
-    ``Trainer`` (warm start, timed steps with the attention launches counted
-    from 0), card against CPU, the SR and diffusion branches, the export
-    round trip and a checkpoint resume, and the entry point ``main()``. It
-    runs in a temporary ``IRP_WEIGHTS_DIR`` holding copies of the shipped
-    weights, so nothing under weights/ is written."""
+    ``Trainer``'s executable tier (the train step and each distribution's
+    draw as CUDA graphs) against ``Trainer(eager=True)``, bit for bit with
+    cuDNN's deterministic algorithms on both sides (the r5 mix's three
+    distributions, remat, the SR and diffusion branches, a checkpoint
+    resumed into a graph trainer); then eager and graph steps timed in
+    turns with the attention launches of the graph steps counted from 0;
+    card against CPU, the optimizer card against CPU, the export round trip
+    and the entry point ``main()``. It runs in a temporary
+    ``IRP_WEIGHTS_DIR`` holding copies of the shipped weights, so nothing
+    under weights/ is written."""
     import shutil
     import tempfile
 
@@ -1093,8 +1184,10 @@ def phase_train(torch, np, report, card):
     from image_restoration_platform_tpu_torch.ops.cuda.attention import flash_kernel
     from image_restoration_platform_tpu_torch.train import DataConfig, Trainer, TrainConfig, synthetic_batch
     from image_restoration_platform_tpu_torch.train import __main__ as train_main
+    from image_restoration_platform_tpu_torch.train import exec as X
     from image_restoration_platform_tpu_torch.train import trainer as T
 
+    check(X.WARMUP_STEPS == TRAIN_GRAPH_WARMUP, f"the train graph's warm-up is {X.WARMUP_STEPS} steps")
     families = ("restore-unet", "sr-x2", "diffusion-restore")
     for family in families:
         check(os.path.exists(W.weights_path(family)), f"weights/{family}.npz missing")
@@ -1111,66 +1204,144 @@ def phase_train(torch, np, report, card):
         cfg = TrainConfig(**TRAIN_RECIPE)
         shipped = W.load_state_dict(W.weights_path("restore-unet"))
 
+        # --- graph against eager, bit for bit: cuDNN's deterministic
+        # algorithms on both sides (its default weight gradients may sum in
+        # another order on every run, eager against eager too)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
         t = time.perf_counter()
+        try:
+            graph, eager = _train_pair(cfg, warm_start=True)
+            check(all(torch.equal(p.detach().cpu(), shipped[n]) for n, p in graph.state.model.named_parameters()),
+                  "the warm start did not load the shipped weights")
+            ckpt = os.path.join(tmp, "ckpt")
+            saved: list = []
+
+            def save(k):
+                if k == TRAIN_RESUME_AT:
+                    saved.append(graph.save_checkpoint(ckpt))
+
+            rows = _train_compare(torch, graph, eager, TRAIN_COMPARE_STEPS, 1, on_step=save)
+            check([r["compile_count"] for r in rows][TRAIN_COMPARE_STEPS - 4:] == [4] * 4,
+                  f"compile_count not 1 step + 3 distributions, flat: {[r['compile_count'] for r in rows]}")
+            stats = graph.exec_stats()
+            check(stats == {"compile_count": 4, "executables": 4, "graphs": 4}, f"graph trainer built {stats}")
+            # a checkpoint resumed into a graph trainer that has built and
+            # stepped: it continues the uninterrupted losses, bit for bit
+            resumed = Trainer(cfg, device="cuda")
+            resumed.run(1, log_every=100)
+            builds = resumed.compile_count
+            resumed.resume_checkpoint(saved[0])
+            check(resumed.state.step == TRAIN_RESUME_AT, "resumed step")
+            resumed_losses = [float(resumed.train_step(resumed.next_batch()))
+                              for _ in range(TRAIN_COMPARE_STEPS - TRAIN_RESUME_AT)]
+            straight = [r["loss_graph"] for r in rows[TRAIN_RESUME_AT:]]
+            check(resumed_losses == straight, f"resume under graphs: {resumed_losses} against {straight}")
+            check(all(torch.equal(a, b) for a, b in zip(graph.state.model.parameters(),
+                                                        resumed.state.model.parameters())), "resumed parameters")
+            out["graph_vs_eager"] = {"steps": rows, "exec_stats": stats,
+                                     "resume": {"at_step": TRAIN_RESUME_AT, "losses": resumed_losses,
+                                                "builds_before_resume": builds,
+                                                "compile_count_after": resumed.compile_count}}
+            del graph, eager, resumed
+            torch.cuda.empty_cache()
+
+            # remat captures too: two attention launches a step
+            graph, eager = _train_pair(dataclasses.replace(cfg, remat=True), warm_start=True)
+            out["remat"] = _train_compare(torch, graph, eager, 2, 2)
+            del graph, eager
+
+            # the SR and diffusion branches at b8 (the diffusion noise from the
+            # registered generator)
+            branches = {}
+            for name, family, extra, want in TRAIN_BRANCHES:
+                bcfg = TrainConfig(family=family, batch_size=8, image_size=cfg.image_size,
+                                   learning_rate=cfg.learning_rate, total_steps=cfg.total_steps, data_photo=True,
+                                   seed=cfg.seed, **extra)
+                graph, eager = _train_pair(bcfg, warm_start=True)
+                if name == "diffusion_eps":  # the same network trained for eps prediction
+                    for tr in (graph, eager):
+                        tr.step_fn.model_cfg = dataclasses.replace(tr.step_fn.model_cfg, parameterization="eps")
+                if family == "sr-x2":
+                    check(graph.state.model.config.limit_pool == 0, "SR trains with the limiter on")
+                t_branch = time.perf_counter()
+                branch_rows = _train_compare(torch, graph, eager, 3, want)
+                branches[name] = {"losses": [r["loss_graph"] for r in branch_rows],
+                                  "launches_per_replay": branch_rows[-1]["launches_graph"],
+                                  "graphs": graph.exec_stats()["graphs"], "s": time.perf_counter() - t_branch}
+                check(np.isfinite(branches[name]["losses"]).all(), f"{name}: {branches[name]}")
+                del graph, eager
+            out["branches"] = branches
+            torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        out["compare_s"] = time.perf_counter() - t
+        print(json.dumps({"train_graph_vs_eager": {
+            "steps": [{k: r[k] for k in ("step", "loss_graph", "launches_graph", "compile_count")}
+                      for r in out["graph_vs_eager"]["steps"]],
+            "resume": out["graph_vs_eager"]["resume"], "remat_losses": [r["loss_graph"] for r in out["remat"]],
+            "branches": out["branches"], "s": out["compare_s"]}}), flush=True)
+
+        # --- the main path, timed: eager and graph trainers on the recipe
+        # (default cuDNN), warmed until every executable is built, then
+        # blocks of steps in turns (eager, graph, graph, eager); the
+        # attention launches of the graph steps counted from 0
+        t = time.perf_counter()
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
         trainer = Trainer(cfg, device="cuda", warm_start=True)
-        check(all(torch.equal(p.detach().cpu(), shipped[n]) for n, p in trainer.state.model.named_parameters()),
-              "the warm start did not load the shipped weights")
         warm_losses = trainer.run(TRAIN_WARMUP_STEPS, log_every=1)
         torch.cuda.synchronize()
+        build = {"peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "reserved_growth_gib": (torch.cuda.memory_reserved() - reserved) / 2**30,
+                 "executables": trainer.exec_stats()}
+        eager = Trainer(cfg, device="cuda", warm_start=True, eager=True)
+        eager.run(TRAIN_WARMUP_STEPS, log_every=100)
         out["setup_and_warmup_s"] = time.perf_counter() - t
-
-        # --- the main path: counts from 0, timed steps, counts read after
-        torch.cuda.reset_peak_memory_stats()
-        events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(TRAIN_TIMED_STEPS)]
-        losses = []
-        _zero_launches(flash_kernel)
-        t = time.perf_counter()
-        for start, mid, end in events:
-            start.record()
-            batch = trainer.next_batch()
-            mid.record()
-            losses.append(trainer.step_fn(trainer.state, *batch))
-            end.record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = _read_launches("flash_attention", flash_kernel)
-        losses = torch.stack(losses).cpu().numpy()
-        data_ms = [a.elapsed_time(b) for a, b, _ in events]
-        step_ms = [b.elapsed_time(c) for _, b, c in events]
-        out.update({
-            "steps": TRAIN_TIMED_STEPS, "batch": cfg.batch_size, "size": cfg.image_size,
-            "images_per_s": TRAIN_TIMED_STEPS * cfg.batch_size / wall,
-            "wall_ms_per_step": 1e3 * wall / TRAIN_TIMED_STEPS,
-            "train_step_ms": statistics.median(step_ms), "train_step_ms_min_max": [min(step_ms), max(step_ms)],
-            "synthetic_batch_ms": statistics.median(data_ms),
-            "synthetic_batch_ms_min_max": [min(data_ms), max(data_ms)],
-            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "attention_launches": launches, "losses_first_last": [float(losses[0]), float(losses[-1])],
-            "warmup_losses": warm_losses,
-        })
-        check(np.isfinite(losses).all() and np.isfinite(warm_losses).all(), f"training losses {losses} {warm_losses}")
-        check(launches == TRAIN_TIMED_STEPS, f"attention launches {launches} != UNet forwards {TRAIN_TIMED_STEPS}")
-        # remat: the forward runs again in the backward, two launches a step
-        remat = T.TrainStep(dataclasses.replace(cfg, remat=True), trainer.device)
-        before = flash_kernel.launches
-        check(bool(torch.isfinite(remat(trainer.state, *trainer.next_batch()))), "remat step loss")
-        out["attention_launches_remat_step"] = flash_kernel.launches - before
-        check(out["attention_launches_remat_step"] == 2, f"remat step: {out['attention_launches_remat_step']} launches")
-
-        # where the time of one step goes (data and train step, profiled)
-        prof = torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
-        with prof:
-            trainer.step_fn(trainer.state, *trainer.next_batch())
-            torch.cuda.synchronize()
-        busy, kernel_launches, split, top = _kernel_split(torch, prof)
-        step_total = out["train_step_ms"] + out["synthetic_batch_ms"]
-        out["profile_step"] = {"kernel_ms_total": busy if top else "not measured", "kernel_launches": kernel_launches,
-                               "by_kind_ms": split,
-                               "device_idle_share": 1.0 - busy / step_total if top else "not measured",
-                               "top": top[:8]}
-        print(json.dumps({"training": {k: v for k, v in out.items() if k != "profile_step"}}), flush=True)
-        print(json.dumps({"profile_train_step": out["profile_step"]}), flush=True)
+        builds = trainer.compile_count
+        blocks = {"eager": [], "graph": []}
+        for i, mode in enumerate(("eager", "graph", "graph", "eager")):
+            if i == 1:
+                _zero_launches(flash_kernel)
+            blocks[mode].append(_timed_steps(torch, trainer if mode == "graph" else eager, TRAIN_TIMED_STEPS // 2))
+            if i == 2:
+                launches = _read_launches("flash_attention", flash_kernel)
+        check(trainer.compile_count == builds, f"a timed step built an executable: {builds} -> "
+                                               f"{trainer.compile_count}")
+        check(launches == TRAIN_TIMED_STEPS, f"attention launches {launches} != train steps {TRAIN_TIMED_STEPS}")
+        timing = {}
+        for mode, runs in blocks.items():
+            data_ms = [x for r in runs for x in r["data_ms"]]
+            step_ms = [x for r in runs for x in r["step_ms"]]
+            losses = [x for r in runs for x in r["losses"]]
+            check(np.isfinite(losses).all(), f"{mode} training losses {losses}")
+            timing[mode] = {
+                "images_per_s": TRAIN_TIMED_STEPS * cfg.batch_size / sum(r["wall_s"] for r in runs),
+                "wall_ms_per_step": 1e3 * sum(r["wall_s"] for r in runs) / TRAIN_TIMED_STEPS,
+                "train_step_ms": statistics.median(step_ms), "train_step_ms_min_max": [min(step_ms), max(step_ms)],
+                "synthetic_batch_ms": statistics.median(data_ms), "synthetic_batch_ms_min_max": [min(data_ms),
+                                                                                                 max(data_ms)],
+                "peak_allocated_gib": max(r["peak_gib"] for r in runs),
+                "peak_over_allocated_before_gib": max(r["peak_gib"] - r["allocated_before_gib"] for r in runs),
+                "losses_first_last": [losses[0], losses[-1]],
+            }
+        for mode, tr in (("eager", eager), ("graph", trainer)):
+            step_total = timing[mode]["train_step_ms"] + timing[mode]["synthetic_batch_ms"]
+            timing[mode]["profile_step"] = _step_profile(
+                torch, lambda tr=tr: (tr.train_step(tr.next_batch()), torch.cuda.synchronize()), step_total,
+                skip=("Optimizer.",))
+        out.update({"steps": TRAIN_TIMED_STEPS, "batch": cfg.batch_size, "size": cfg.image_size,
+                    "attention_launches": launches, "warmup_losses": warm_losses, "graph_build": build,
+                    "memory_reserved_gib": torch.cuda.memory_reserved() / 2**30, "timing": timing,
+                    "timed_s": time.perf_counter() - t})
+        print(json.dumps({"training": {k: v for k, v in out.items()
+                                       if k in ("steps", "batch", "size", "attention_launches", "warmup_losses",
+                                                "graph_build", "memory_reserved_gib", "setup_and_warmup_s",
+                                                "timed_s")}}), flush=True)
+        for mode in ("eager", "graph"):
+            print(json.dumps({f"training_{mode}": timing[mode]}), flush=True)
+        del eager
 
         # --- card against CPU: same warm weights, one batch drawn on the CPU.
         # In f32 (TF32 off for the check) the card must agree with the CPU;
@@ -1208,7 +1379,6 @@ def phase_train(torch, np, report, card):
                "card_f32_vs_cpu_f32": rel("card_f32", "cpu_f32"), "card_bf16_vs_cpu_bf16": rel("card_bf16", "cpu_bf16"),
                "card_bf16_vs_cpu_f32": rel("card_bf16", "cpu_f32"), "cpu_bf16_vs_cpu_f32": rel("cpu_bf16", "cpu_f32")}
         del runs
-        print(json.dumps({"train_card_vs_cpu": cmp}), flush=True)
         f32 = cmp["card_f32_vs_cpu_f32"]
         check(f32["loss_rel"] <= TRAIN_LOSS_RTOL and f32["grad_norm_rel"] <= TRAIN_GRAD_NORM_RTOL
               and f32["grad_cosine"] >= TRAIN_GRAD_COSINE, f"training card vs CPU in f32: {cmp}")
@@ -1216,33 +1386,26 @@ def phase_train(torch, np, report, card):
         gap = cmp["card_bf16_vs_cpu_f32"]["loss_rel"]
         check(abs(gap - TRAIN_REFERENCE_BF16_GAP) <= TRAIN_GAP_RTOL * TRAIN_REFERENCE_BF16_GAP,
               f"training card bf16 vs CPU f32: loss gap {gap} against the reference's {TRAIN_REFERENCE_BF16_GAP}")
+        # the optimizer alone: fused AdamW on the card against the CPU on the
+        # same parameters, gradients and learning rates
+        gen = torch.Generator().manual_seed(5)
+        start = torch.randn(TRAIN_OPT_SIZE, generator=gen)
+        grads = [torch.randn(TRAIN_OPT_SIZE, generator=gen) * scale for scale in (0.1, 4.0, 0.01, 1.0, 0.3)]
+        sched = T.lr_schedule(cfg)
+        after = {}
+        for where in ("cpu", "cuda"):
+            p = torch.nn.Parameter(start.to(where, copy=True))  # to("cpu") alone would share start's memory
+            opt = T.make_optimizer(cfg, [p])
+            for k, g in enumerate(grads):
+                T.set_lr_(opt, sched(k + 100))
+                p.grad = g.to(where)
+                opt.step()
+            after[where] = p.detach().cpu()
+        cmp["adamw_card_vs_cpu_max_abs_over_lr"] = float((after["cuda"] - after["cpu"]).abs().max()) / sched(104)
+        print(json.dumps({"train_card_vs_cpu": cmp}), flush=True)
         out["card_vs_cpu"] = cmp
 
-        # --- the SR and diffusion branches, two steps each
-        branches = {}
-        _zero_launches(flash_kernel)
-        for name, family, extra, want in TRAIN_BRANCHES:
-            tr = Trainer(TrainConfig(family=family, batch_size=8, image_size=cfg.image_size,
-                                     learning_rate=cfg.learning_rate, total_steps=cfg.total_steps, data_photo=True,
-                                     seed=cfg.seed, **extra), device="cuda", warm_start=True)
-            if name == "diffusion_eps":  # the same network trained for eps prediction
-                tr.step_fn.model_cfg = dataclasses.replace(tr.step_fn.model_cfg, parameterization="eps")
-            before = flash_kernel.launches
-            t = time.perf_counter()
-            branch_losses = tr.run(2, log_every=1)
-            torch.cuda.synchronize()
-            branches[name] = {"losses": branch_losses, "attention_launches": flash_kernel.launches - before,
-                              "s": time.perf_counter() - t}
-            if family == "sr-x2":
-                check(tr.state.model.config.limit_pool == 0, "SR trains with the limiter on")
-            check(np.isfinite(branch_losses).all(), f"{name}: losses {branch_losses}")
-            check(branches[name]["attention_launches"] == want, f"{name}: {branches[name]}")
-            del tr
-        branch_launches = _read_launches("flash_attention", flash_kernel)
-        print(json.dumps({"train_branches": branches}), flush=True)
-        out["branches"] = branches
-
-        # --- the export round trip, and a checkpoint resumed
+        # --- the export round trip
         path = os.path.join(tmp, "roundtrip", "restore-unet.npz")
         W.save_params(trainer.state.model.state_dict(), path)
         back = W.load_state_dict(path)
@@ -1258,30 +1421,10 @@ def phase_train(torch, np, report, card):
         with torch.no_grad():
             out_err = float((reloaded(x, c) - trainer.state.model(x, c)).abs().max())
         check(out_err <= EXPORT_OUT_ATOL, f"export round trip: the forward moved {out_err}")
-
-        ckpt = trainer.save_checkpoint(os.path.join(tmp, "ckpt"))
-        resumed = Trainer(cfg, device="cuda")
-        resumed.resume_checkpoint(ckpt)
-        check(resumed.state.step == trainer.state.step, "resumed step")
-        check(all(torch.equal(a, b) for a, b in zip(trainer.state.model.state_dict().values(),
-                                                    resumed.state.model.state_dict().values())), "resumed params")
-        sa, sb = trainer.state.optimizer.state_dict()["state"], resumed.state.optimizer.state_dict()["state"]
-        check(all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in ("exp_avg", "exp_avg_sq")), "resumed moments")
-        batch_a, batch_b = trainer.next_batch(), resumed.next_batch()
-        check(all(torch.equal(a, b) for a, b in zip(batch_a, batch_b)), "resumed data stream")
-        lr = trainer.step_fn.schedule(trainer.state.step)
-        loss_a = float(trainer.step_fn(trainer.state, *batch_a))
-        loss_b = float(resumed.step_fn(resumed.state, *batch_b))
-        diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(trainer.state.model.parameters(),
-                                                                    resumed.state.model.parameters())])
-        resume = {"loss_straight": loss_a, "loss_resumed": loss_b, "lr": lr,
-                  "max_param_diff_over_lr": float(diffs.max()) / lr,
-                  "share_over_1pct_lr": float((diffs > 0.01 * lr).float().mean())}
-        check(abs(loss_a - loss_b) <= 1e-5 * abs(loss_a) and resume["share_over_1pct_lr"] <= RESUME_FAR_SHARE
-              and resume["max_param_diff_over_lr"] <= 2.5, f"checkpoint resume: {resume}")
-        out["export"] = {"worst_weight_excess": worst, "forward_max_abs": out_err, "resume": resume}
-        print(json.dumps({"train_export_resume": out["export"]}), flush=True)
-        del trainer, resumed, reloaded
+        out["export"] = {"worst_weight_excess": worst, "forward_max_abs": out_err}
+        print(json.dumps({"train_export": out["export"]}), flush=True)
+        del trainer, reloaded
+        torch.cuda.empty_cache()
 
         # --- the entry point, two steps on the recipe
         os.environ.update({**TRAIN_ENV, "TRAIN_STEPS": "2", "IRP_WEIGHTS_DIR": os.path.join(tmp, "main")})
@@ -1312,7 +1455,7 @@ def phase_train(torch, np, report, card):
         shutil.rmtree(tmp, ignore_errors=True)
     check({f: _sha256(p) for f, p in shipped_paths.items()} == shipped_sha, "the phase changed weights/")
     torch.cuda.empty_cache()
-    return {"train": launches, "train_branches": branch_launches}
+    return {"train": launches}
 
 
 # the mesh phase: slot meshes that repeat the one card, [cuda:0] x 4. Their
@@ -1334,8 +1477,11 @@ MESH_MEAN_LEVELS, MESH_SCORES_ATOL, SPATIAL_MAX_LEVELS, PIPE_BF16_ATOL = 1.0, 1e
 SPATIAL_ROWS = 1501  # no multiple of 4: three rows of padding
 # two Trainer steps on data=2 against two unsharded steps, in f32 (TF32 off):
 # the losses to 1e-4 relative, each step's gradient to cosine 0.9999 and its
-# norm to 1e-4; the parameters as the resume check holds them
+# norm to 1e-4; the parameters equal up to cuDNN's nondeterministic weight
+# gradients, which Adam scales to ~lr on elements whose gradient is near 0:
+# at most 0.1 % of elements off by more than 1 % of lr
 MESH_TRAIN_BATCH, MESH_LOSS_RTOL, MESH_GRAD_COSINE, MESH_GRAD_NORM_RTOL = 8, 1e-4, 0.9999, 1e-4
+MESH_FAR_SHARE = 1e-3
 
 
 def _levels(np, a, b) -> dict:
@@ -1618,7 +1764,7 @@ def phase_mesh(torch, np, report, card):
     for s in steps:
         check(s["loss_rel"] <= MESH_LOSS_RTOL and s["grad_cosine"] >= MESH_GRAD_COSINE
               and s["grad_norm_rel"] <= MESH_GRAD_NORM_RTOL, f"mesh train step against the unsharded one: {cmp}")
-    check(far / total <= RESUME_FAR_SHARE, f"mesh train parameters: {cmp}")
+    check(far / total <= MESH_FAR_SHARE, f"mesh train parameters: {cmp}")
     check(n == 4, f"mesh train: {n} attention launches in 2 steps, expected one a slot a step")
     out["train_data2"] = cmp
     launches["flash_attention"]["mesh_train"] = n
@@ -1701,15 +1847,16 @@ def _arrays(result) -> list:
     return out
 
 
-def _step_profile(torch, fn, step_ms: float) -> dict:
+def _step_profile(torch, fn, step_ms: float, skip: tuple = ("restore/", "sr_tiled/")) -> dict:
     """One profiled call: kernel ms on the card, kernels run, the host's
     kernel-launch calls and graph launches, and the idle share against the
-    unprofiled step time."""
+    unprofiled step time (annotation ranges named with a ``skip`` prefix
+    are not kernels)."""
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
     with prof:
         fn()
-    busy, count, split, _ = _kernel_split(torch, prof, skip=("restore/", "sr_tiled/"))
+    busy, count, split, _ = _kernel_split(torch, prof, skip=skip)
     events = prof.key_averages()
     return {"kernel_ms": busy if count else "not measured", "kernels": count, "by_kind_ms": split,
             "host_kernel_launches": sum(e.count for e in events if e.key in LAUNCH_APIS),
@@ -2156,6 +2303,8 @@ def main() -> int:
     parser.add_argument("--graphs-only", action="store_true",
                         help="build the kernels, warm an engine and run the graph phase (9) alone; "
                              "prints no result lines")
+    parser.add_argument("--train-only", action="store_true",
+                        help="build the kernels and run the training phase (6) alone; prints no result lines")
     args = parser.parse_args()
     try:
         import torch
@@ -2206,6 +2355,14 @@ def main() -> int:
     if args.quality_only:
         phase_quality_bench(torch, np, report, card)
         print(f"quality only: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
+    if args.train_only:
+        phase_train(torch, np, report, card)
+        if args.report:
+            os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        print(f"train only: {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
     if args.graphs_only:
         from image_restoration_platform_tpu_torch.config import ServingConfig

@@ -20,7 +20,6 @@ both round half to even. ``_degrade`` draws everything it needs first
 
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 
@@ -292,11 +291,8 @@ def _grain_texture(gen, n, size, channels):
     half-resolution octave adds clumping."""
     dev = gen.device
     base = _random_clean(gen, n, size, channels)
-    k_iso = torch.tensor([[1, 2, 1], [2, 4, 2], [1, 2, 1]], dtype=torch.float32, device=dev) / 16
-    k_h = torch.tensor([[0, 0, 0], [1, 2, 1], [0, 0, 0]], dtype=torch.float32, device=dev) / 4
-    k_d = torch.eye(3, dtype=torch.float32, device=dev) / 3
-    bank = torch.stack([k_iso, k_h, k_h.T, k_d])[:, None]  # [4, 1, 3, 3]
-    box = torch.full((1, 1, 3, 3), 1.0 / 9.0, device=dev)
+    consts = _constants(dev)
+    bank, box = consts["grain_bank"], consts["grain_box"]  # [4, 1, 3, 3], [1, 1, 3, 3]
 
     def correlated(s):
         noise = _normal(gen, (n, 1, s, s))
@@ -424,9 +420,8 @@ _PSF_BANK_RICH = _build_psf_bank(
 )
 
 
-@functools.lru_cache(maxsize=8)
 def _psf_bank(rich: bool, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_PSF_BANK_RICH if rich else _PSF_BANK).to(device)
+    return _constants(device)["psf_bank_rich" if rich else "psf_bank"]
 
 
 def _psf_blur(x, idx, strength, bank):
@@ -504,16 +499,51 @@ def _dct8_matrix() -> np.ndarray:
 
 _DCT8 = _dct8_matrix()
 
+def _make_constants(device: torch.device) -> dict:
+    """The data path's constant tensors on ``device``, made by the
+    operations that once made them at every call; ``*_only`` and the other
+    [1, 7] rows are masks over the seven degradations."""
+    k_iso = torch.tensor([[1, 2, 1], [2, 4, 2], [1, 2, 1]], dtype=torch.float32, device=device) / 16
+    k_h = torch.tensor([[0, 0, 0], [1, 2, 1], [0, 0, 0]], dtype=torch.float32, device=device) / 4
+    k_d = torch.eye(3, dtype=torch.float32, device=device) / 3
+    mask = lambda *v: torch.tensor(v, dtype=torch.float32, device=device)[None, :]  # noqa: E731
+    return {
+        "grain_bank": torch.stack([k_iso, k_h, k_h.T, k_d])[:, None],
+        "grain_box": torch.full((1, 1, 3, 3), 1.0 / 9.0, device=device),
+        "psf_bank": torch.from_numpy(_PSF_BANK).to(device),
+        "psf_bank_rich": torch.from_numpy(_PSF_BANK_RICH).to(device),
+        "dct8": torch.from_numpy(_DCT8).to(device),
+        "jpeg_luma": torch.from_numpy(_JPEG_LUMA).to(device),
+        "jpeg_chroma": torch.from_numpy(_JPEG_CHROMA).to(device),
+        "compression_only": mask(0, 0, 0, 1, 0, 0, 0),
+        "lowlight_only": mask(0, 0, 1, 0, 0, 0, 0),
+        "blur_compression": mask(1, 0, 0, 1, 0, 0, 0),
+        "wellposed": mask(1, 1, 0, 1, 1, 0, 0),
+    }
+
+
+_device_constants: dict = {}
+
+
+def _constants(device: torch.device) -> dict:
+    """``_make_constants(device)``, made once per device: a draw captured
+    as a CUDA graph may not copy from the host, and outside a capture each
+    copy would be a hidden synchronisation. Nothing writes them."""
+    key = str(device)
+    if key not in _device_constants:
+        _device_constants[key] = _make_constants(device)
+    return _device_constants[key]
+
 
 def _quant_channel(v, table, qscale):
     """8x8 block DCT quantize/dequantize one channel. v [N,H,W] in
-    [-128, 127]; ``table`` the [8, 8] numpy table; qscale [N] the JPEG
-    quality scale factor."""
+    [-128, 127]; ``table`` the [8, 8] table on v's device (``_constants``);
+    qscale [N] the JPEG quality scale factor."""
     n, h, w = v.shape
-    d = torch.from_numpy(_DCT8).to(v.device)
+    d = _constants(v.device)["dct8"]
     blocks = v.reshape(n, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
     coef = d @ blocks @ d.T
-    qt = torch.clamp(torch.from_numpy(table).to(v.device) * qscale[:, None, None, None, None], 1.0, 255.0)
+    qt = torch.clamp(table * qscale[:, None, None, None, None], 1.0, 255.0)
     qc = torch.round(coef / qt) * qt
     rec = d.T @ qc @ d
     return rec.permute(0, 1, 3, 2, 4).reshape(n, h, w)
@@ -530,7 +560,8 @@ def _jpeg_analog(x, strength):
     q = 92.0 - 80.0 * strength  # JPEG quality in [12, 92]
     qscale = torch.where(q < 50.0, 50.0 / q, 2.0 - q / 50.0)
 
-    y_q = _quant_channel(y * 255.0 - 128.0, _JPEG_LUMA, qscale)
+    consts = _constants(x.device)
+    y_q = _quant_channel(y * 255.0 - 128.0, consts["jpeg_luma"], qscale)
     n, h, w = cb.shape
 
     def sub(ch):
@@ -539,8 +570,8 @@ def _jpeg_analog(x, strength):
     def up(ch):
         return ch.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
-    cb_q = up(_quant_channel(sub(cb) * 255.0 - 128.0, _JPEG_CHROMA, qscale))
-    cr_q = up(_quant_channel(sub(cr) * 255.0 - 128.0, _JPEG_CHROMA, qscale))
+    cb_q = up(_quant_channel(sub(cb) * 255.0 - 128.0, consts["jpeg_chroma"], qscale))
+    cr_q = up(_quant_channel(sub(cr) * 255.0 - 128.0, consts["jpeg_chroma"], qscale))
 
     y2 = (y_q + 128.0) / 255.0
     cb2 = (cb_q + 128.0) / 255.0 - 0.5
@@ -597,18 +628,18 @@ def _apply_degradations(clean, cfg: DataConfig, draws: dict, protect=None):
     d = draws
     n = clean.shape[0]
     dev = clean.device
-    vec = lambda *v: torch.tensor(v, dtype=torch.float32, device=dev)[None, :]  # noqa: E731
+    masks = _constants(dev)
     # which degradations are active (bernoulli 0.5 each)
     active = d["active"].float()
     solo = torch.zeros((n, 1), device=dev)
     if cfg.compression_solo > 0.0:
         # compression-only rows, so the jpeg-only regime is no 0.8 % tail
         solo = d["solo"].float()
-        active = active * (1.0 - solo) + vec(0, 0, 0, 1, 0, 0, 0) * solo
+        active = active * (1.0 - solo) + masks["compression_only"] * solo
     if cfg.lowlight_solo > 0.0:
         # lowLight-only rows; compression wins ties
         ll = d["lowlight"].float() * (1.0 - solo)
-        active = active * (1.0 - ll) + vec(0, 0, 1, 0, 0, 0, 0) * ll
+        active = active * (1.0 - ll) + masks["lowlight_only"] * ll
     keep_clean = d["keep_clean"].float()
     # a near-clean band (tiny strengths) densely covers the identity regime
     near_clean = d["near_clean"].float()
@@ -617,10 +648,10 @@ def _apply_degradations(clean, cfg: DataConfig, draws: dict, protect=None):
     if cfg.deconv:
         # 40 % of active blur/compression draws move to [0.7, 1.0], outside
         # the near-clean band
-        take = d["hard"].float() * vec(1, 0, 0, 1, 0, 0, 0) * (strength > 0.0) * (1.0 - near_clean)
+        take = d["hard"].float() * masks["blur_compression"] * (strength > 0.0) * (1.0 - near_clean)
         strength = strength * (1.0 - take) + d["tail"] * take
     if protect is not None:
-        wellposed = vec(1, 1, 0, 1, 1, 0, 0)
+        wellposed = masks["wellposed"]
         strength = strength * (wellposed + (1.0 - wellposed) * (1.0 - protect))
 
     x = clean

@@ -5,11 +5,20 @@ Counterpart of image_restoration_platform_tpu/train/trainer.py on one card:
 - loss: Charbonnier (robust L1) + gradient difference for edge fidelity, with
   the identity weighting and the compression-only anchor of the restore
   branch; SR, diffusion (eps / x0) and sampler-aware branches as there;
-- optimizer: ``torch.optim.AdamW`` driven by optax's
+- optimizer: ``torch.optim.AdamW`` (fused, capturable) driven by optax's
   ``warmup_cosine_decay_schedule`` (step k takes the schedule's value at k,
   so step 0 takes lr 0), after optax's ``clip_by_global_norm(1.0)``; weight
   decay applies to every parameter, and a parameter that got no gradient
   gets a zero one, as in optax;
+- executables (train/exec.py): as the reference jits its train step and
+  each data distribution's draw, ``Trainer`` runs both through an
+  executable tier keyed by their structure: on a card one CUDA graph for
+  the train step and one per ``DataConfig``, replayed every step; on the
+  CPU, under a mesh and with ``eager=True`` the same code eagerly. A step
+  is split for that into its host part (``TrainStep.prepare``: the
+  schedule's lr into the optimizer's device tensor, the step's noise seed)
+  and its device part (``TrainStep.update``), which reads nothing from the
+  host;
 - parameters and Adam moments stay f32; the layers cast weights to the
   activation type at each call (models/nn.py), so the forward runs in
   ``compute_dtype`` without ``cast_for_compute``, which is serving's;
@@ -18,9 +27,12 @@ Counterpart of image_restoration_platform_tpu/train/trainer.py on one card:
 - randomness: the model's init from ``seed``, the data from a generator
   seeded ``seed + 1`` that persists across ``run()`` calls, the diffusion
   noise of step k from a generator seeded from (``seed + 77``, k) or
-  (``seed + 177``, k) for the sampler, like the reference's ``fold_in``;
+  (``seed + 177``, k) for the sampler, like the reference's ``fold_in``
+  (a CUDA graph registers both generators, so its replays draw what eager
+  steps would);
 - checkpoints: ``torch.save`` of params, optimizer state, step and the data
-  stream in place of orbax;
+  stream in place of orbax; a resume copies them into the live tensors, so
+  captured graphs stay valid;
 - ``mesh`` (parallel/mesh.py): every data slot runs the forward and the
   backward on its shard of the batch with a replica of the model
   (column-parallel over its tensor slots when the tensor axis is larger than
@@ -58,8 +70,10 @@ from ..models.srnet import SRNet, SRNetConfig
 from ..parallel.mesh import AXIS_DATA, process_span
 from ..parallel.sharding import gather_state, scatter_state_, shard_params
 from ..serve.engine import resolve_device
+from ..serve.exec_cache import ExecCache, exec_key
 from ..utils.logging import get_logger
 from .data import DataConfig, synthetic_batch
+from .exec import DataGraph, TrainGraph
 
 
 @dataclass(frozen=True)
@@ -145,8 +159,51 @@ def lr_schedule(cfg: TrainConfig):
 
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.AdamW:
     """optax.adamw's update (b1 0.9, b2 0.999, eps 1e-8, decoupled weight
-    decay on every parameter); the train step sets its lr each step."""
-    return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
+    decay on every parameter) as PyTorch's fused AdamW with
+    ``capturable=True``: its learning rate is a 0-d f32 tensor on the
+    parameters' device, which the train step fills from the schedule
+    (``set_lr_``), and its step counts live there too, so an update reads
+    nothing from the host and a CUDA graph can hold it. The fused kernel
+    exists on the CPU as well (the foreach path that ``capturable=True``
+    takes alone refuses CPU tensors), so the CPU tests hold the card's
+    update: bias corrections from the device's f32 step count."""
+    params = list(params)
+    lr = torch.zeros((), dtype=torch.float32, device=params[0].device)
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay,
+                             fused=True, capturable=True)
+
+
+def set_lr_(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Fill the optimizer's learning-rate tensors with ``lr`` (a kernel on
+    the device's stream: no synchronisation)."""
+    for group in optimizer.param_groups:
+        group["lr"].fill_(lr)
+
+
+def trained_params(optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def load_optimizer_state_(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    """The Adam moments and step counts of ``saved`` (an optimizer
+    ``state_dict``) copied into ``optimizer``'s own state tensors in place,
+    so a CUDA graph that holds them stays valid; a parameter without saved
+    state gets zeros (a fresh start). The hyperparameters stay the
+    optimizer's: the schedule sets the learning rate at every step."""
+    params = trained_params(optimizer)
+    if any(i >= len(params) for i in saved["state"]):
+        raise ValueError(f"the saved optimizer state covers {len(saved['state'])} tensors, not {len(params)}")
+    for i, p in enumerate(params):
+        state, kept = optimizer.state[p], saved["state"].get(i, {})
+        if state:
+            for key, value in state.items():
+                if key in kept:
+                    value.copy_(kept[key])
+                else:
+                    value.zero_()
+        else:
+            for key, value in kept.items():
+                state[key] = value.to(p.device, torch.float32 if key == "step" else p.dtype, copy=True)
 
 
 def clip_by_global_norm_(grads: list[torch.Tensor]) -> torch.Tensor:
@@ -155,12 +212,6 @@ def clip_by_global_norm_(grads: list[torch.Tensor]) -> torch.Tensor:
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     torch._foreach_div_(grads, torch.clamp(norm, min=1.0))
     return norm
-
-
-def _step_generator(gen: torch.Generator, base: int, step: int) -> torch.Generator:
-    """``gen`` reseeded from (base, step): each step's noise is a function of
-    the step, as with ``fold_in(PRNGKey(base), step)``."""
-    return gen.manual_seed(base * 1_000_003 + step)
 
 
 @dataclass
@@ -182,7 +233,7 @@ class TrainStep:
 
     ``draws`` injects the diffusion branches' random draws ({"t_frac",
     "eps"}, or {"noise"} for the sampler); by default they come from the
-    step's generator."""
+    step's generator (``seed``)."""
 
     def __init__(self, cfg: TrainConfig, device: torch.device):
         self.cfg = cfg
@@ -193,7 +244,7 @@ class TrainStep:
         self.is_sr = isinstance(self.model_cfg, SRNetConfig)
         self.is_diffusion = isinstance(self.model_cfg, DiffusionConfig)
         self.schedule = lr_schedule(cfg)
-        self._noise_gen = torch.Generator(device=device)
+        self.noise_gen = torch.Generator(device=device)
 
     def build_model(self) -> torch.nn.Module:
         """The family's module with random weights from ``cfg.seed``. SR
@@ -210,12 +261,20 @@ class TrainStep:
         model = self.build_model()
         return TrainState(model, make_optimizer(self.cfg, model.parameters()), 0)
 
-    def _inputs(self, degraded, clean, cond, step: int, draws: dict | None):
+    def seed(self, step: int) -> None:
+        """Reseed the diffusion branches' generator for ``step``: each step's
+        noise is a function of the step, as with ``fold_in(PRNGKey(base),
+        step)``, (``seed + 77``, k) or (``seed + 177``, k) for the sampler."""
+        if self.is_diffusion:
+            base = self.cfg.seed + (177 if self.cfg.diffusion_sampler_steps > 0 else 77)
+            self.noise_gen.manual_seed(base * 1_000_003 + step)
+
+    def _inputs(self, degraded, clean, cond, draws: dict | None):
         """The model's per-example inputs for the whole batch (each with the
         batch on dim 0) and what the objective needs besides the output."""
         cfg, dt = self.cfg, self.cfg.compute_dtype
         if self.is_diffusion and cfg.diffusion_sampler_steps > 0:
-            noise = draws["noise"] if draws else _step_generator(self._noise_gen, cfg.seed + 177, step)
+            noise = draws["noise"] if draws else self.noise_gen
             return (degraded.to(dt), cond.to(dt), noise), {}
         if self.is_diffusion:
             # denoising loss: noise the clean image, condition on the
@@ -226,9 +285,8 @@ class TrainStep:
             if draws:
                 t_frac, eps = draws["t_frac"], draws["eps"]
             else:
-                gen = _step_generator(self._noise_gen, cfg.seed + 77, step)
-                t_frac = torch.rand((n,), generator=gen, device=clean.device)
-                eps = torch.randn(x0.shape, generator=gen, device=clean.device)
+                t_frac = torch.rand((n,), generator=self.noise_gen, device=clean.device)
+                eps = torch.randn(x0.shape, generator=self.noise_gen, device=clean.device)
             xt = diff_mod.add_noise(x0, eps, t_frac)
             x_in = torch.cat([xt, x_cond], dim=-1).to(dt)
             return (x_in, cond.to(dt), t_frac * self.model_cfg.timesteps), {"x0": x0, "xt": xt, "eps": eps}
@@ -249,7 +307,9 @@ class TrainStep:
             x_in, c, t = inputs
             return model(x_in, c, t=t)
         if self.cfg.remat and not self.is_sr:
-            return checkpoint(model, *inputs, use_reentrant=False)
+            # the model draws no random numbers, so there is no generator
+            # state to stash (reading it is refused under graph capture)
+            return checkpoint(model, *inputs, use_reentrant=False, preserve_rng_state=False)
         return model(*inputs)
 
     def _objective(self, out, degraded, clean, anchor, aux: dict) -> torch.Tensor:
@@ -273,7 +333,13 @@ class TrainStep:
 
     def loss(self, model, degraded, clean, cond, anchor, step: int = 0, draws: dict | None = None):
         """The reference's ``loss_fn`` of one batch."""
-        inputs, aux = self._inputs(degraded, clean, cond, step, draws)
+        if not draws:
+            self.seed(step)
+        return self._loss(model, degraded, clean, cond, anchor, draws)
+
+    def _loss(self, model, degraded, clean, cond, anchor, draws: dict | None):
+        """``loss`` with the noise generator as it stands."""
+        inputs, aux = self._inputs(degraded, clean, cond, draws)
         return self._objective(self._forward(model, *inputs), degraded, clean, anchor, aux)
 
     def replicate(self, state: TrainState, mesh) -> None:
@@ -287,7 +353,7 @@ class TrainStep:
         """The loss of the whole batch with every data slot running its
         shard: the slots' outputs are gathered on this process's first slot
         (and across processes, where this process's part keeps its graph)."""
-        inputs, aux = self._inputs(degraded, clean, cond, state.step, draws)
+        inputs, aux = self._inputs(degraded, clean, cond, draws)
         processes, rank = process_span()
         dp = len(state.replicas)
         n = inputs[0].shape[0]
@@ -308,34 +374,68 @@ class TrainStep:
             out = torch.cat(parts, dim=0)
         return self._objective(out, degraded, clean, anchor, aux)
 
+    def prepare(self, state: TrainState) -> None:
+        """The host's part of the next step: the schedule's lr for it into
+        the optimizer's tensor, and its noise seed."""
+        set_lr_(state.optimizer, self.schedule(state.step))
+        self.seed(state.step)
+
+    def update(self, state: TrainState, degraded, clean, cond, anchor, draws: dict | None = None) -> torch.Tensor:
+        """The device part of a single-device step, which a CUDA graph can
+        hold: the gradients (allocated by ``allocate_grads_``) zeroed in
+        place, the loss and its backward, the global-norm clip and AdamW.
+        Returns the loss before the update."""
+        grads = [p.grad for p in trained_params(state.optimizer)]
+        torch._foreach_zero_(grads)
+        loss = self._loss(state.model, degraded, clean, cond, anchor, draws)
+        loss.backward()
+        clip_by_global_norm_(grads)
+        state.optimizer.step()
+        return loss.detach()
+
+    @staticmethod
+    def allocate_grads_(state: TrainState) -> None:
+        """A gradient tensor for every parameter, allocated once: the step
+        accumulates into it, and a parameter the loss does not reach keeps
+        zeros, as optax gives it."""
+        for p in trained_params(state.optimizer):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
     def __call__(self, state: TrainState, degraded, clean, cond, anchor, draws: dict | None = None) -> torch.Tensor:
-        """One step: loss, gradients, global-norm clip, AdamW at the
+        """One step, eagerly: loss, gradients, global-norm clip, AdamW at the
         schedule's lr for this step. Returns the loss before the update."""
-        params = [p for group in state.optimizer.param_groups for p in group["params"]]
-        for group in state.optimizer.param_groups:
-            group["lr"] = self.schedule(state.step)
-        state.optimizer.zero_grad(set_to_none=True)
+        self.prepare(state)
         if state.replicas is None:
-            loss = self.loss(state.model, degraded, clean, cond, anchor, state.step, draws)
-            loss.backward()
+            self.allocate_grads_(state)
+            loss = self.update(state, degraded, clean, cond, anchor, draws)
         else:
-            copies = [r for r in state.replicas if r is not state.model]
-            for replica in copies:
-                replica.zero_grad(set_to_none=True)
-            loss = self._mesh_loss(state, degraded, clean, cond, anchor, draws)
-            loss.backward()
-            # the loss is the whole batch's, so each replica holds its
-            # shard's part of the gradient: the copies' parts are added to
-            # what the slots running the model itself left in it
-            grads = [gather_state(r, self.device, grads=True) for r in copies]
-            for name, p in state.model.named_parameters():
-                parts = [g[name] for g in grads] + ([] if p.grad is None else [p.grad])
-                if parts:
-                    p.grad = sum(parts)
+            loss = self._mesh_update(state, degraded, clean, cond, anchor, draws)
+        state.step += 1
+        self.sync_replicas(state)
+        return loss
+
+    def _mesh_update(self, state: TrainState, degraded, clean, cond, anchor, draws: dict | None) -> torch.Tensor:
+        """``update`` with every data slot running its shard of the batch."""
+        params = trained_params(state.optimizer)
+        state.optimizer.zero_grad(set_to_none=True)
+        copies = [r for r in state.replicas if r is not state.model]
+        for replica in copies:
+            replica.zero_grad(set_to_none=True)
+        loss = self._mesh_loss(state, degraded, clean, cond, anchor, draws)
+        loss.backward()
+        # the loss is the whole batch's, so each replica holds its shard's
+        # part of the gradient: the copies' parts are added to what the
+        # slots running the model itself left in it
+        grads = [gather_state(r, self.device, grads=True) for r in copies]
+        for name, p in state.model.named_parameters():
+            parts = [g[name] for g in grads] + ([] if p.grad is None else [p.grad])
+            if parts:
+                p.grad = sum(parts)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if state.replicas is not None and process_span()[0] > 1:
+        if process_span()[0] > 1:
             import torch.distributed as dist
 
             flat = torch.cat([p.grad.reshape(-1) for p in params])
@@ -346,8 +446,6 @@ class TrainStep:
                 offset += p.numel()
         clip_by_global_norm_([p.grad for p in params])
         state.optimizer.step()
-        state.step += 1
-        self.sync_replicas(state)
         return loss.detach()
 
     @staticmethod
@@ -375,9 +473,13 @@ class Trainer:
         checkpoint_dir: str | None = None,
         warm_start: bool = False,
         mesh=None,
+        eager: bool = False,
     ):
         """``device`` defaults to "cuda", or with a ``mesh`` to its first
-        slot, which holds the f32 model and the optimizer."""
+        slot, which holds the f32 model and the optimizer. ``eager`` runs the
+        train step and the data draws eagerly on a card instead of replaying
+        their CUDA graphs, to compare the two; on the CPU and under a mesh
+        they always run eagerly."""
         self.cfg = cfg
         if mesh is not None:
             if device is not None and torch.device(device).type != mesh.primary.type:
@@ -411,6 +513,55 @@ class Trainer:
         self._data_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self._mix_acc = 0.0
         self._mix_acc_mild = 0.0
+        self.eager = eager
+        self._exec_cache = ExecCache()
+        self._graph_pool = None  # every graph's memory pool, made at the first capture
+
+    # ---------------------------------------------------- executable tier
+
+    @property
+    def compile_count(self) -> int:
+        """Executables built: the train step's and one per data distribution."""
+        return self._exec_cache.compile_count
+
+    def exec_stats(self) -> dict:
+        """compile_count, the executables built and the CUDA graphs captured."""
+        return {"compile_count": self.compile_count, **self._exec_cache.stats()}
+
+    def _captures(self) -> bool:
+        return self.device.type == "cuda" and not self.eager and self.state.replicas is None
+
+    def _pool(self):
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+    def _step_executable(self, batch):
+        """The train step's executable for ``batch``'s shapes: the
+        structure of the step (family, batch, size, compute type, remat,
+        sampler steps, device and mesh), then the batch's shapes and types."""
+        cfg = self.cfg
+        mesh = None if self.mesh is None else tuple(self.mesh.shape.items())
+        structural = (cfg.family, cfg.batch_size, cfg.image_size, str(cfg.compute_dtype), cfg.remat,
+                      cfg.diffusion_sampler_steps, str(self.device), mesh)
+
+        def build():
+            if self._captures():
+                return TrainGraph(self.step_fn, self.state, batch, self._pool())
+            return lambda b: self.step_fn(self.state, *b)
+
+        return self._exec_cache.get(exec_key("train", structural, batch), build)
+
+    def _draw_executable(self, data_cfg: DataConfig):
+        """The data draw's executable for ``data_cfg`` at this batch size."""
+        def draw():
+            return synthetic_batch(self._data_gen, self.cfg.batch_size, data_cfg, with_masks=True)
+
+        def build():
+            return DataGraph(draw, self._data_gen, self._pool()) if self._captures() else draw
+
+        key = exec_key("data", (data_cfg, self.cfg.batch_size, str(self.device)), ())
+        return self._exec_cache.get(key, build)
 
     def _next_data_config(self) -> DataConfig:
         """The distribution of the next batch: deterministic, fraction-exact
@@ -431,8 +582,17 @@ class Trainer:
         return cfg_step
 
     def next_batch(self):
-        """The next step's (degraded, clean, cond, comp_only) from the data stream."""
-        return synthetic_batch(self._data_gen, self.cfg.batch_size, self._next_data_config(), with_masks=True)
+        """The next step's (degraded, clean, cond, comp_only) from the data
+        stream, drawn by its distribution's executable. Where that replays a
+        CUDA graph these are its output buffers, which its next draw
+        overwrites: clone what is kept."""
+        return self._draw_executable(self._next_data_config())()
+
+    def train_step(self, batch) -> torch.Tensor:
+        """One step on ``batch`` through the step executable; returns the
+        loss before the update (where that replays a CUDA graph, its output
+        buffer, which the next step overwrites)."""
+        return self._step_executable(batch)(batch)
 
     def run(self, steps: int, log_every: int = 50) -> list[float]:
         """``steps`` train steps on fresh synthetic batches; returns the
@@ -441,7 +601,7 @@ class Trainer:
         losses = []
         t0 = time.time()
         for i in range(steps):
-            loss = self.step_fn(self.state, *self.next_batch())
+            loss = self.train_step(self.next_batch())
             if i % log_every == 0 or i == steps - 1:
                 loss_val = float(loss)
                 losses.append(loss_val)
@@ -483,10 +643,11 @@ class Trainer:
     def resume_checkpoint(self, path: str) -> None:
         """Restore params, Adam moments, step and the data stream, so
         continued training keeps its Adam state, schedule position and
-        batches."""
+        batches. Everything is copied into the live tensors, so the
+        executables built before stay valid."""
         saved = torch.load(path, map_location="cpu")
         self.state.model.load_state_dict(saved["params"], strict=True)
-        self.state.optimizer.load_state_dict(saved["opt_state"])
+        load_optimizer_state_(self.state.optimizer, saved["opt_state"])
         self.state.step = int(saved["step"])
         self.step_fn.sync_replicas(self.state)
         self._data_gen.set_state(saved["data"]["rng"])

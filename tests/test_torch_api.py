@@ -39,6 +39,9 @@ from image_restoration_platform_tpu.train.ood import ood_clean
 from image_restoration_platform_tpu_torch import api as tapi
 from image_restoration_platform_tpu_torch import config as tconfig
 from test_hdr_ingest import _fft_convolve, write_png16
+from torch_reference_codec import build_reference_codec
+
+build_reference_codec()  # before any xdist worker loads the reference's codec (see the helper)
 
 AUTH = {"Authorization": "Bearer dev-user-alice"}
 MODEL = {"model": "restore-unet-small"}

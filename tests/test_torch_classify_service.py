@@ -18,6 +18,9 @@ from image_restoration_platform_tpu import imageio as jimageio
 from image_restoration_platform_tpu.classify import ClassifierService as JClassifier
 from image_restoration_platform_tpu.classify import classify_scores as jclassify
 from image_restoration_platform_tpu_torch.classify import DEGRADATION_ORDER, ClassifierService, classify_scores
+from torch_reference_codec import build_reference_codec
+
+build_reference_codec()  # before any xdist worker loads the reference's codec (see the helper)
 
 ATOL = 1e-4
 

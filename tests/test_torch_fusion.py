@@ -24,6 +24,9 @@ from image_restoration_platform_tpu_torch import imageio
 from image_restoration_platform_tpu_torch.config import ServingConfig
 from image_restoration_platform_tpu_torch.serve import RestorationEngine, RestoratorService
 from image_restoration_platform_tpu_torch.serve.programs import build_fusion_program
+from torch_reference_codec import build_reference_codec
+
+build_reference_codec()  # before any xdist worker loads the reference's codec (see the helper)
 
 torch.set_num_threads(2)
 FAMILY = "restore-unet-small"

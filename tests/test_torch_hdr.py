@@ -29,6 +29,9 @@ from image_restoration_platform_tpu_torch.config import ServingConfig
 from image_restoration_platform_tpu_torch.ops import deblur as TD
 from image_restoration_platform_tpu_torch.serve import RestorationEngine, RestoratorService
 from test_hdr_ingest import _fft_convolve, write_png16
+from torch_reference_codec import build_reference_codec
+
+build_reference_codec()  # before any xdist worker loads the reference's codec (see the helper)
 
 torch.set_num_threads(2)
 ATOL = 1e-4

@@ -37,6 +37,9 @@ from image_restoration_platform_tpu_torch.parallel import make_mesh
 from image_restoration_platform_tpu_torch.serve import RestorationEngine, RestoratorService
 from image_restoration_platform_tpu_torch.serve.engine import _fire_flags
 from test_torch_stages import _deblock_batch, _deblur_batch
+from torch_reference_codec import build_reference_codec
+
+build_reference_codec()  # before any xdist worker loads the reference's codec (see the helper)
 
 torch.set_num_threads(2)
 FAMILY = "restore-unet-small"

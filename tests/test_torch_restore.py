@@ -30,6 +30,9 @@ from image_restoration_platform_tpu_torch.ops.deblock import deblock_canvas_batc
 from image_restoration_platform_tpu_torch.ops.deblur import deblur_canvas_batch
 from image_restoration_platform_tpu_torch.serve import MicroBatcher, RestorationEngine, RestoratorService
 from image_restoration_platform_tpu_torch.serve.programs import build_restore_program
+from torch_reference_codec import build_reference_codec
+
+build_reference_codec()  # before any xdist worker loads the reference's codec (see the helper)
 
 torch.set_num_threads(2)
 

@@ -27,6 +27,9 @@ from image_restoration_platform_tpu_torch.obs.metrics import get_counters
 from image_restoration_platform_tpu_torch.ops.cuda.blend import blend_kernel
 from image_restoration_platform_tpu_torch.serve import RestorationEngine, RestoratorService
 from image_restoration_platform_tpu_torch.serve.programs import build_restore_program, build_sr_tiled_program
+from torch_reference_codec import build_reference_codec
+
+build_reference_codec()  # before any xdist worker loads the reference's codec (see the helper)
 
 torch.set_num_threads(2)
 

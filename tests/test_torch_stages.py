@@ -20,6 +20,9 @@ from image_restoration_platform_tpu.train.ood import deg_jpeg, ood_clean
 from image_restoration_platform_tpu_torch.classify import fused as tfused
 from image_restoration_platform_tpu_torch.ops import deblock as TK
 from image_restoration_platform_tpu_torch.ops import deblur as TD
+from torch_reference_codec import build_reference_codec
+
+build_reference_codec()  # before any xdist worker loads the reference's codec (see the helper)
 
 torch.set_num_threads(2)
 

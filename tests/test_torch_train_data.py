@@ -71,7 +71,8 @@ def test_quant_channel_and_jpeg_analog_match_jax():
     with jax.default_matmul_precision("highest"):
         ref_q = J._quant_channel(jnp.asarray(v), J._JPEG_LUMA, jnp.asarray(qscale))
         ref_j = J._jpeg_analog(jnp.asarray(x), jnp.asarray(s))
-    np.testing.assert_allclose(D._quant_channel(_t(v), D._JPEG_LUMA, _t(qscale)).numpy(), np.asarray(ref_q),
+    luma = D._constants(torch.device("cpu"))["jpeg_luma"]  # D._JPEG_LUMA, made once per device
+    np.testing.assert_allclose(D._quant_channel(_t(v), luma, _t(qscale)).numpy(), np.asarray(ref_q),
                                rtol=0, atol=1e-3)  # byte-range values: 1e-5 of 255
     np.testing.assert_allclose(D._jpeg_analog(_t(x), _t(s)).numpy(), np.asarray(ref_j), rtol=0, atol=ATOL)
 

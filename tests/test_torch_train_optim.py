@@ -6,10 +6,13 @@ step of three schedules against optax's ``warmup_cosine_decay_schedule``
 (the reference's ``make_optimizer``) at atol 1e-9 (rates are ~1e-3); three
 steps of AdamW after the global-norm clip on a fixed parameter tree and
 fixed gradients (the clip triggering on one step and not on the others)
-against the reference's optax chain at atol 1e-6. optax computes Adam's
-bias corrections in f32 (1 - 0.999**k from the f32 0.999), PyTorch in
-f64: the updates differ by ~1e-5 of lr at the second step, inside the bar
-at lr 1e-2."""
+against the reference's optax chain at atol 1e-6, through the port's
+optimizer as the train step drives it (fused AdamW with ``capturable=True``,
+the learning rate a tensor filled by ``set_lr_``, the step count on the
+device). optax computes Adam's bias corrections in f32 (1 - 0.999**k from
+the f32 0.999); the fused kernel from the f32 step count in f64 on the CPU:
+the updates differ by ~1e-5 of lr at the second step, inside the bar at lr
+1e-2."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -80,8 +83,7 @@ def test_adamw_with_clip_matches_optax():
     for k, g in enumerate(grads):
         updates, state = optimizer.update({n: jnp.asarray(v) for n, v in g.items()}, state, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        for group in topt.param_groups:
-            group["lr"] = sched(k)
+        T.set_lr_(topt, sched(k))
         for n, p in tparams.items():
             p.grad = torch.from_numpy(g[n].copy())
         norm = T.clip_by_global_norm_([p.grad for p in tparams.values()])

@@ -186,8 +186,11 @@ def _jax_optimizer():
     return jax.jit(optimizer.init), jax.jit(optimizer.update)
 
 
-def check_train_steps(branch: str, steps: int) -> None:
-    """``steps`` steps of ``branch`` in both packages, held to the bars above."""
+def check_train_steps(branch: str, steps: int, through_trainer: bool = False) -> None:
+    """``steps`` steps of ``branch`` in both packages, held to the bars above.
+    ``through_trainer`` takes the port's steps through ``Trainer.train_step``
+    (the executable tier) instead of calling ``TrainStep``; it cannot inject
+    the diffusion draws."""
     jcfg, tcfg = train_config(branch, jtrainer), train_config(branch, T)
     family = tcfg.family
     batch = _batch()
@@ -200,9 +203,14 @@ def check_train_steps(branch: str, steps: int) -> None:
         opt_state = opt_init(jparams)
 
         ts, _ = T.make_train_step(tcfg, "cpu")
-        model = ts.build_model()
+        if through_trainer:
+            trainer = T.Trainer(tcfg, device="cpu")
+            state = trainer.state
+            model = state.model
+        else:
+            model = ts.build_model()
+            state = T.TrainState(model, T.make_optimizer(tcfg, model.parameters()), 0)
         model.load_state_dict(W.params_from_jax(W.flatten_params(jparams)), strict=True)
-        state = T.TrainState(model, T.make_optimizer(tcfg, model.parameters()), 0)
         names = [n for n, _ in model.named_parameters()]
         allowance = {name: 0.0 for name in names}  # the lr term of each element's bar
         conditioning = {name: 0.0 for name in names}
@@ -231,7 +239,11 @@ def check_train_steps(branch: str, steps: int) -> None:
             # one step of each
             updates, opt_state = opt_update(jgrads, opt_state, jparams)
             jparams = optax.apply_updates(jparams, updates)
-            loss = ts(state, *tbatch, draws=draws)
+            if through_trainer:
+                assert draws is None, "the trainer draws its own diffusion noise"
+                loss = trainer.train_step(tbatch)
+            else:
+                loss = ts(state, *tbatch, draws=draws)
             np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
             ref_params = W.params_from_jax(W.flatten_params(jparams))
             for name, p in model.named_parameters():
