@@ -97,7 +97,19 @@ failure (exit code 1):
    ``unet_pipeline_apply`` on data=2 x pipe=2 at 512 with 4 microbatches; two
    ``Trainer`` steps on data=2 against two unsharded steps (f32); and
    ``maybe_initialize_distributed`` with one rank on NCCL and one
-   ``all_reduce``;
+   ``all_reduce``. Every mesh surface runs through the mesh executable tier
+   (CUDA graphs, each data row's on its own, replayed segment-major) after
+   its engine's ``warmup_serving`` (``compile_count`` held flat) and is held
+   to ``RestorationEngine(mesh=..., eager=True)``: restore 512 b8 on both
+   meshes on a batch that fires deblock and deblur in some shards and on one
+   that fires nothing, ``sr_tiled`` in both egresses, ``sr_spatial`` on both
+   canvases, bytes and attention / blend launches equal, then eager and
+   graph step times in turns (eager, graph, graph, eager) with one profiled
+   step each (kernel ms, kernels, host kernel and graph launches, idle
+   share); the mesh ``Trainer`` on data=2 on graphs against its eager twin
+   bit for bit over 8 steps of the r5 mix (deterministic cuDNN) in f32 and
+   in bf16 with their step times, and again for 3 steps with the one-rank
+   NCCL group up (the step's ``all_gather`` and ``all_reduce`` captured);
 8. quality and bench: the quality gates of tests/test_quality*.py
    (eval/gates.py) on the card in bf16 with the shipped weights, the
    attention kernel's count set to 0 before and read after (one launch per
@@ -1482,6 +1494,12 @@ SPATIAL_ROWS = 1501  # no multiple of 4: three rows of padding
 # at most 0.1 % of elements off by more than 1 % of lr
 MESH_TRAIN_BATCH, MESH_LOSS_RTOL, MESH_GRAD_COSINE, MESH_GRAD_NORM_RTOL = 8, 1e-4, 0.9999, 1e-4
 MESH_FAR_SHARE = 1e-3
+# the mesh surfaces on graphs against eager: calls a turn (eager, graph,
+# graph, eager) after one untimed call; the mesh trainer on graphs against
+# eager: steps compared (the r5 mix's three distributions by step 5), steps
+# a timed turn, and steps with the one-rank NCCL group up
+MESH_STEP_REPS = 3
+MESH_TRAIN_COMPARE_STEPS, MESH_TRAIN_TIMED_STEPS, MESH_NCCL_STEPS = 8, 5, 3
 
 
 def _levels(np, a, b) -> dict:
@@ -1522,22 +1540,24 @@ def _mesh_restore_batch(np, imageio, motion_psf):
 
 def _fire_flags_of(torch, engine, canvas, is_jpeg):
     """[N, 3] bool: the stages' per-image fire flags (deblock, deblur_veto,
-    deblur) of one run of the engine's restore-unet program on full
-    canvases, every data slot's shard on a mesh: what the engine's fetch
+    deblur) of the engine's restore-unet program run eagerly on full
+    canvases, each data row's shard on the row's replica in turn on a mesh
+    (slot after slot, outside the executables): what the engine's fetch
     reads and counts as ``stage_fires.*``."""
-    from image_restoration_platform_tpu_torch.serve.engine import _fire_flags
+    from image_restoration_platform_tpu_torch.serve.programs.restore import fire_flags
 
     n, h, w = canvas.shape[:3]
-    args = (engine._to_device(canvas), torch.tensor([[h, w]] * n, dtype=torch.int32, device=engine.device),
+    args = (torch.from_numpy(canvas).to(engine.device),
+            torch.tensor([[h, w]] * n, dtype=torch.int32, device=engine.device),
             torch.from_numpy(is_jpeg).to(engine.device))
     program = engine._program("restore-unet", "rgb")
-    if engine._is_multi_device():
-        flags = engine._run_data_parallel("restore-unet", program, args)[2]
-    else:
+    models = engine._data_replicas("restore-unet") if engine._is_multi_device() else [engine.model("restore-unet")]
+    flags = []
+    for model, shard in zip(models, zip(*(a.chunk(len(models)) for a in args))):
         fires: dict = {}
-        program(engine.model("restore-unet"), *args, fires=fires)
-        flags = _fire_flags(fires, n, engine.device)
-    return flags.cpu().numpy().astype(bool)
+        program(model, *shard, fires=fires)
+        flags.append(fire_flags(fires, shard[0].shape[0], engine.device))
+    return torch.cat(flags).cpu().numpy().astype(bool)
 
 
 def _profiled_step(torch, fn) -> dict:
@@ -1558,7 +1578,15 @@ def phase_mesh(torch, np, report, card):
     bars and its kernels' launches counted from 0: restore_batch through
     RestoratorService on data=4 and data=2 x tensor=2, sr_tiled on data=4,
     sr_spatial on spatial=4, both pipelines, two Trainer steps on data=2,
-    and the process group of one rank on NCCL."""
+    and the process group of one rank on NCCL. Every mesh surface runs on
+    CUDA graphs (the mesh executable tier, after ``warmup_serving``, with
+    ``compile_count`` held flat) and is held to its eager twin
+    (``RestorationEngine(mesh=..., eager=True)``): bytes and the kernels'
+    launches equal, step times in turns (eager, graph, graph, eager) with
+    one profiled step each; the mesh ``Trainer`` on data=2 on graphs
+    against its eager twin bit for bit over 8 steps in f32 and in bf16
+    (deterministic cuDNN), with the steps' times, and again captured with
+    the one-rank NCCL group up."""
     import socket
 
     import torch.distributed as dist
@@ -1580,7 +1608,7 @@ def phase_mesh(torch, np, report, card):
     cfg = ServingConfig(size_buckets=(256, 512, 1024), max_batch=8)
     single = RestorationEngine(device="cuda", dtype=torch.bfloat16, serving_config=cfg)
     counters = get_counters()
-    out: dict = {"card": card, "parts_s": {}}
+    out: dict = {"card": card, "parts_s": {}, "graph_vs_eager": []}
     launches: dict = {"flash_attention": {}, "blend_tiles": {}}
     mark = [time.perf_counter()]
 
@@ -1597,15 +1625,59 @@ def phase_mesh(torch, np, report, card):
             times.append(time.perf_counter() - t)
         return 1e3 * statistics.median(times)
 
+    def mesh_engines(families: tuple, **axes):
+        """A mesh engine on CUDA graphs after ``warmup_serving`` of
+        ``families`` at 512 (and the tiled or spatial 2048 canvas), its
+        warm-up report, and its eager twin."""
+        mesh = make_mesh(slots, **axes)
+        graph = RestorationEngine(dtype=torch.bfloat16, serving_config=cfg, param_cache=single.params_cache,
+                                  mesh=mesh)
+        eager = RestorationEngine(dtype=torch.bfloat16, serving_config=cfg, param_cache=single.params_cache,
+                                  mesh=mesh, eager=True)
+        check(not graph.eager and eager.eager, "the graph engine must replay graphs and its twin run eagerly")
+        t = time.perf_counter()
+        graph.warmup_serving(families=families, sizes=(512,))
+        warm = {"s": time.perf_counter() - t, **graph.exec_stats()}
+        check(warm["graphs"] > 0 and warm["eager_executables"] == 0, f"mesh {axes}: warm-up {warm}")
+        return graph, eager, warm
+
+    def graph_vs_eager(surface: str, run, graph, eager) -> dict:
+        """``run(e)`` on the graph engine, then on its eager twin: equal
+        arrays and equal launches of both kernels."""
+        _zero_launches(flash_kernel)
+        _zero_launches(blend_kernel)
+        got = _arrays(run(graph))
+        graph_n = (_read_launches("flash_attention", flash_kernel), _read_launches("blend_tiles", blend_kernel))
+        _zero_launches(flash_kernel)
+        _zero_launches(blend_kernel)
+        want = _arrays(run(eager))
+        eager_n = (flash_kernel.launches, blend_kernel.launches)
+        levels = max(int(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.dtype == np.uint8 else 0
+                     for a, b in zip(got, want))
+        row = {"surface": surface, "equal": all(np.array_equal(a, b) for a, b in zip(got, want)),
+               "max_levels": levels, "launches_graph": graph_n, "launches_eager": eager_n}
+        print(json.dumps({"mesh_graph_vs_eager": row}), flush=True)
+        check(row["equal"] and graph_n == eager_n, f"mesh graph replay against eager execution: {row}")
+        out["graph_vs_eager"].append(row)
+        return row
+
+    def steps(run, graph, eager) -> dict:
+        return _eager_graph_steps(torch, run, {"eager": eager, "graph": graph}, MESH_STEP_REPS)
+
     # --- restore-unet 512 b8: RestoratorService on the mesh engine, and the
     # engine against the unsharded one on the same batch, image by image, with
     # the stages' per-image fire flags held equal
     canvas8, is_jpeg8, uploads = _mesh_restore_batch(np, imageio, motion_psf)
+    clean8 = np.stack([np.clip(np.round(_photo(np, 60 + i, 512) * 255.0), 0, 255).astype(np.uint8)
+                       for i in range(8)])
+    no_jpeg8 = np.zeros(8, np.float32)
     part_done("restore_inputs")
     ref_out, ref_scores, _ = single.restore_batch(canvas8, is_jpeg=is_jpeg8)
     ref_flags = _fire_flags_of(torch, single, canvas8, is_jpeg8)
     check(ref_flags[:, [0, 2]].any(0).all() and not ref_flags[:, [0, 2]].all(0).any(),
           f"the mesh batch should fire deblock and deblur on some images only: {ref_flags.tolist()}")
+    clean_flags = _fire_flags_of(torch, single, clean8, no_jpeg8)
+    check(not clean_flags.any(), f"the clean mesh batch should fire no stage: {clean_flags.tolist()}")
     # the same in f32 (TF32 convolutions, torch's default): the spread of
     # the unsharded engine between batch sizes is bf16 rounding
     f32 = RestorationEngine(device="cuda", dtype=torch.float32, serving_config=cfg, param_cache=single.params_cache)
@@ -1623,13 +1695,12 @@ def phase_mesh(torch, np, report, card):
         # the unsharded engine at a data slot's batch size, shard by shard
         by_shard = np.concatenate([single.restore_batch(canvas8[i : i + shard], is_jpeg=is_jpeg8[i : i + shard])[0]
                                    for i in range(0, 8, shard)])
-        engine = RestorationEngine(dtype=torch.bfloat16, serving_config=cfg, param_cache=single.params_cache,
-                                   mesh=make_mesh(slots, **axes))
+        engine, eager, warm = mesh_engines(("restore-unet",), **axes)
+        builds = engine.compile_count
         batcher = MicroBatcher(engine, cfg, device="cuda")
         svc = RestoratorService(engine=engine, batcher=batcher, serving_config=cfg, device="cuda")
         try:
             check(svc.restore(uploads[0])["success"], f"mesh {name}: warm-up failed")
-            engine.restore_batch(canvas8, is_jpeg=is_jpeg8)  # replicas, cuDNN plans at the shard shapes
             before = counters.snapshot()
             _zero_launches(flash_kernel)
             with ThreadPoolExecutor(max_workers=len(uploads)) as pool:
@@ -1648,10 +1719,7 @@ def phase_mesh(torch, np, report, card):
                "vs_unsharded_at_shard_batch": _levels(np, got_out, by_shard),
                "unsharded_shard_batch_vs_b8": _levels_per_image(np, by_shard, ref_out),
                "stage_fires": flags.sum(0).tolist(), "batches": batches, "attention_launches": n,
-               "batch_bucket": meta["batchBucket"],
-               "step_ms": step_ms(lambda: engine.restore_batch(canvas8, is_jpeg=is_jpeg8)),
-               "profile": _profiled_step(torch, lambda: engine.restore_batch(canvas8, is_jpeg=is_jpeg8))}
-        print(json.dumps({f"mesh_restore_{name}": cmp}), flush=True)
+               "batch_bucket": meta["batchBucket"], "warmup": warm}
         check(n == per_batch * batches, f"mesh {name}: {n} attention launches in {batches} batches, "
                                         f"expected {per_batch} a batch")
         check(np.array_equal(flags, ref_flags), f"mesh {name}: stage fires {flags.tolist()} against the "
@@ -1661,32 +1729,51 @@ def phase_mesh(torch, np, report, card):
         if axes.get("tensor", 1) == 1:  # each slot runs the unsharded program on its shard
             check(cmp["vs_unsharded_at_shard_batch"]["max_levels"] == 0,
                   f"mesh {name} against the unsharded engine at the shard's batch size: {cmp}")
+        for batch_name, canvas, is_jpeg in (("fire", canvas8, is_jpeg8), ("clean", clean8, no_jpeg8)):
+            row = graph_vs_eager(f"restore/{name}/512b8/{batch_name}",
+                                 lambda e, c=canvas, j=is_jpeg: e.restore_batch(c, is_jpeg=j), engine, eager)
+            check(row["launches_graph"][0] == per_batch, f"mesh {name}: {row}")
+        cmp["steps"] = steps(lambda e: e.restore_batch(canvas8, is_jpeg=is_jpeg8), engine, eager)
+        cmp["compile_count_after_warmup"], cmp["compile_count_after_serving"] = builds, engine.compile_count
+        print(json.dumps({f"mesh_restore_{name}": cmp}), flush=True)
+        check(engine.compile_count == builds, f"mesh {name}: a warmed surface was built in a request: {cmp}")
         out[f"restore_{name}"] = cmp
         launches["flash_attention"][f"mesh_restore_{name}"] = n
+        del engine, eager, svc, batcher
+        torch.cuda.empty_cache()
         part_done(f"restore_{name}")
 
     # --- sr-x2 2048 -> 4096 with the tiles split over data=4: equal, one blend
     canvas2048 = _photo_large(np, 11, 2048, 2048)
     ref_sr, _ = single.sr_tiled(canvas2048, "sr-x2")
-    tiled = RestorationEngine(dtype=torch.bfloat16, serving_config=cfg, param_cache=single.params_cache,
-                              mesh=make_mesh(slots, data=4))
-    tiled.sr_tiled(canvas2048, "sr-x2")
+    tiled, tiled_eager, warm = mesh_engines(("sr-x2",), data=4)
+    builds = tiled.compile_count
     _zero_launches(blend_kernel)
     got_sr, _ = tiled.sr_tiled(canvas2048, "sr-x2")
     n = _read_launches("blend_tiles", blend_kernel)
-    cmp = {**_levels(np, got_sr, ref_sr), "blend_launches": n, "single_ms": step_ms(
-        lambda: single.sr_tiled(canvas2048, "sr-x2"), 3), "mesh_ms": step_ms(lambda: tiled.sr_tiled(canvas2048, "sr-x2"), 3)}
-    print(json.dumps({"mesh_sr_tiled_data4": cmp}), flush=True)
+    cmp = {**_levels(np, got_sr, ref_sr), "blend_launches": n, "warmup": warm}
     check(n == 1, f"mesh sr_tiled: {n} blend launches")
     check(cmp["max_levels"] == 0, f"mesh sr_tiled differs from the unsharded call: {cmp}")
+    for output in ("rgb", "yuv420"):
+        graph_vs_eager(f"sr_tiled/data4/2048/{output}", lambda e, o=output: e.sr_tiled(canvas2048, "sr-x2", output=o),
+                       tiled, tiled_eager)
+    cmp["single_ms"] = step_ms(lambda: single.sr_tiled(canvas2048, "sr-x2"), 3)
+    cmp["steps"] = steps(lambda e: e.sr_tiled(canvas2048, "sr-x2"), tiled, tiled_eager)
+    cmp["compile_count_after_warmup"], cmp["compile_count_after_serving"] = builds, tiled.compile_count
+    print(json.dumps({"mesh_sr_tiled_data4": cmp}), flush=True)
+    check(tiled.compile_count == builds, f"mesh sr_tiled: a warmed surface was built in a request: {cmp}")
     out["sr_tiled_data4"] = cmp
     launches["blend_tiles"]["mesh_sr_tiled"] = n
+    del tiled, tiled_eager
+    torch.cuda.empty_cache()
     part_done("sr_tiled")
 
     # --- one canvas row-sharded over spatial=4 against the unsharded forward
-    # (limiter included) of the same padded canvas
-    spatial = RestorationEngine(dtype=torch.bfloat16, serving_config=cfg, param_cache=single.params_cache,
-                                mesh=make_mesh(slots, spatial=4))
+    # (limiter included) of the same padded canvas; the 2048 canvas is the
+    # one the restorator sends there (warmed), 1501 x 1100 a shape of its own
+    spatial, spatial_eager, warm = mesh_engines(("sr-x2",), spatial=4)
+    builds = spatial.compile_count
+    out["sr_spatial_warmup"] = warm
     model = single.model("sr-x2")
     for name, canvas in (("2048", canvas2048), (f"{SPATIAL_ROWS}x1100", _photo_large(np, 12, SPATIAL_ROWS, 1100))):
         got, meta = spatial.sr_spatial(canvas, "sr-x2")
@@ -1700,13 +1787,19 @@ def phase_mesh(torch, np, report, card):
         rows = padded.shape[0] * 2
         seams = [r for b in range(1, 4) for r in (rows // 4 * b - 1, rows // 4 * b) if r < diff.shape[0]]
         cmp = {**_levels(np, got, ref), "seam_mean_levels": float(diff[seams].mean()), "padded_rows": meta["paddedRows"],
-               "halo": meta["halo"], "shape": list(got.shape)}
-        print(json.dumps({f"mesh_sr_spatial_{name}": cmp}), flush=True)
+               "halo": meta["halo"], "shape": list(got.shape), "compile_count": spatial.compile_count - builds}
         check(got.shape == (canvas.shape[0] * 2, canvas.shape[1] * 2, 3) and meta["paddedRows"] == pad,
               f"sr_spatial {name}: {cmp}")
         check(cmp["max_levels"] <= SPATIAL_MAX_LEVELS, f"sr_spatial {name} against the unsharded forward: {cmp}")
         check(cmp["seam_mean_levels"] <= max(0.5, 1.5 * cmp["mean_levels"]), f"sr_spatial {name} seams: {cmp}")
+        graph_vs_eager(f"sr_spatial/spatial4/{name}", lambda e, c=canvas: e.sr_spatial(c, "sr-x2"), spatial,
+                       spatial_eager)
+        cmp["steps"] = steps(lambda e, c=canvas: e.sr_spatial(c, "sr-x2"), spatial, spatial_eager)
+        print(json.dumps({f"mesh_sr_spatial_{name}": cmp}), flush=True)
         out[f"sr_spatial_{name}"] = cmp
+    check(out["sr_spatial_2048"]["compile_count"] == 0, "sr_spatial 2048: the warmed canvas was built in a request")
+    del spatial, spatial_eager
+    torch.cuda.empty_cache()
     part_done("sr_spatial")
 
     # --- the pipelines at 512, n_micro 4, against the unpipelined forwards
@@ -1740,7 +1833,7 @@ def phase_mesh(torch, np, report, card):
                               "total_steps": 20, "warmup_steps": 1})
         plain = Trainer(tcfg, device="cuda", warm_start=True)
         meshed = Trainer(tcfg, warm_start=True, mesh=make_mesh(slots[:2], data=2))
-        steps, n = [], 0
+        train_steps, n = [], 0
         for _ in range(2):
             batch = plain.next_batch()
             check(all(torch.equal(a, b) for a, b in zip(batch, meshed.next_batch())), "the two data streams differ")
@@ -1750,18 +1843,19 @@ def phase_mesh(torch, np, report, card):
             n += _read_launches("flash_attention", flash_kernel)
             gp = torch.cat([p.grad.reshape(-1) for p in plain.state.model.parameters()])
             gm = torch.cat([p.grad.reshape(-1) for p in meshed.state.model.parameters()])
-            steps.append({"loss": lp, "loss_rel": abs(lm - lp) / abs(lp),
-                          "grad_cosine": float(torch.nn.functional.cosine_similarity(gp, gm, dim=0)),
-                          "grad_norm_rel": float(abs(gm.norm() - gp.norm()) / gp.norm())})
+            train_steps.append({"loss": lp, "loss_rel": abs(lm - lp) / abs(lp),
+                                "grad_cosine": float(torch.nn.functional.cosine_similarity(gp, gm, dim=0)),
+                                "grad_norm_rel": float(abs(gm.norm() - gp.norm()) / gp.norm())})
         lr = tcfg.learning_rate
         far = sum(int(((a - b).abs() > 0.01 * lr).sum()) for a, b in zip(
             plain.state.model.parameters(), meshed.state.model.parameters()))
         total = sum(p.numel() for p in plain.state.model.parameters())
+        del plain, meshed
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    cmp = {"steps": steps, "params_far_share": far / total, "attention_launches": n}
+    cmp = {"steps": train_steps, "params_far_share": far / total, "attention_launches": n}
     print(json.dumps({"mesh_train_data2": cmp}), flush=True)
-    for s in steps:
+    for s in train_steps:
         check(s["loss_rel"] <= MESH_LOSS_RTOL and s["grad_cosine"] >= MESH_GRAD_COSINE
               and s["grad_norm_rel"] <= MESH_GRAD_NORM_RTOL, f"mesh train step against the unsharded one: {cmp}")
     check(far / total <= MESH_FAR_SHARE, f"mesh train parameters: {cmp}")
@@ -1770,30 +1864,67 @@ def phase_mesh(torch, np, report, card):
     launches["flash_attention"]["mesh_train"] = n
     part_done("train")
 
-    # --- the data axis across processes: a group of one rank on NCCL
+    # --- the mesh Trainer on graphs against its eager twin, bit for bit
+    # (cuDNN's deterministic algorithms on both sides), in f32 and in bf16;
+    # then the steps timed in turns; then again with the data axis's
+    # collectives in the step: a process group of one rank on NCCL
+    def train_pair(dtype):
+        tcfg = TrainConfig(**{**TRAIN_RECIPE, "batch_size": MESH_TRAIN_BATCH, "compute_dtype": dtype,
+                              "total_steps": 40, "warmup_steps": 1})
+        return _train_pair(tcfg, warm_start=True, mesh=make_mesh(slots[:2], data=2))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     sock = socket.socket()
     sock.bind(("localhost", 0))
     env = {"JAX_COORDINATOR": f"localhost:{sock.getsockname()[1]}", "JAX_NUM_PROCESSES": "1", "JAX_PROCESS_ID": "0"}
     sock.close()
     saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     try:
+        for dtype_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            graph_t, eager_t = train_pair(dtype)
+            rows = _train_compare(torch, graph_t, eager_t, MESH_TRAIN_COMPARE_STEPS, launches_per_step=2)
+            times: dict = {"eager": [], "graph": []}
+            for mode in ("eager", "graph", "graph", "eager"):
+                times[mode] += _timed_steps(torch, graph_t if mode == "graph" else eager_t,
+                                            MESH_TRAIN_TIMED_STEPS)["step_ms"]
+            cmp = {"steps": rows, "exec_stats": graph_t.exec_stats(),
+                   "step_ms": {mode: statistics.median(t) for mode, t in times.items()}}
+            print(json.dumps({f"mesh_train_graph_{dtype_name}": cmp}), flush=True)
+            check(cmp["exec_stats"]["graphs"] > 0 and cmp["exec_stats"]["eager_executables"] == 0,
+                  f"the mesh train step was not captured: {cmp['exec_stats']}")
+            out[f"train_graph_{dtype_name}"] = cmp
+            del graph_t, eager_t
+        part_done("train_graphs")
+
+        # the data axis across processes: a group of one rank on NCCL
+        os.environ.update(env)
         check(maybe_initialize_distributed() and maybe_initialize_distributed(), "no process group")
         value = torch.full((4,), 3.0, device="cuda")
         dist.all_reduce(value)
         group = {"backend": dist.get_backend(), "world_size": dist.get_world_size(), "all_reduce": float(value[0])}
+        graph_t, eager_t = train_pair(torch.bfloat16)
+        rows = _train_compare(torch, graph_t, eager_t, MESH_NCCL_STEPS, launches_per_step=2)
+        group["train_graph"] = {"steps": len(rows), "loss": rows[-1]["loss_graph"], "exec_stats": graph_t.exec_stats()}
+        del graph_t, eager_t
         dist.destroy_process_group()
     finally:
+        torch.backends.cudnn.deterministic = deterministic
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
     print(json.dumps({"mesh_process_group": group}), flush=True)
-    check(group == {"backend": "nccl", "world_size": 1, "all_reduce": 3.0}, f"process group {group}")
+    check({k: group[k] for k in ("backend", "world_size", "all_reduce")}
+          == {"backend": "nccl", "world_size": 1, "all_reduce": 3.0}, f"process group {group}")
+    check(group["train_graph"]["exec_stats"]["graphs"] > 0, f"the NCCL mesh step was not captured: {group}")
     out["process_group"] = group
+    torch.cuda.empty_cache()
+    part_done("process_group")
     out["seconds"] = time.perf_counter() - t_phase
     print(json.dumps({"mesh_phase": {"seconds": out["seconds"], "parts_s": out["parts_s"],
+                                     "surfaces_graph_vs_eager": len(out["graph_vs_eager"]),
                                      "restore_512_b8_single_ms": out["restore_512_b8_single_ms"],
                                      "restore_512_b8_single_profile": out["restore_512_b8_single_profile"],
                                      "f32_unsharded_b2_vs_b8": out["f32_unsharded_b2_vs_b8"]}}), flush=True)
@@ -1847,7 +1978,7 @@ def _arrays(result) -> list:
     return out
 
 
-def _step_profile(torch, fn, step_ms: float, skip: tuple = ("restore/", "sr_tiled/")) -> dict:
+def _step_profile(torch, fn, step_ms: float, skip: tuple = ("restore/", "sr_tiled/", "sr_spatial/")) -> dict:
     """One profiled call: kernel ms on the card, kernels run, the host's
     kernel-launch calls and graph launches, and the idle share against the
     unprofiled step time (annotation ranges named with a ``skip`` prefix
@@ -1862,6 +1993,24 @@ def _step_profile(torch, fn, step_ms: float, skip: tuple = ("restore/", "sr_tile
             "host_kernel_launches": sum(e.count for e in events if e.key in LAUNCH_APIS),
             "host_graph_launches": sum(e.count for e in events if e.key == "cudaGraphLaunch"),
             "device_idle_share": 1.0 - busy / step_ms if count else "not measured"}
+
+
+def _eager_graph_steps(torch, run, engines: dict, reps: int) -> dict:
+    """``run(e)`` timed on the "eager" and the "graph" engine in turns
+    (eager, graph, graph, eager), ``reps`` calls a turn after one untimed
+    call, then one profiled call of each: {mode: step ms and profile}."""
+    times: dict = {"graph": [], "eager": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        run(engines[mode])
+        for _ in range(reps):
+            t = time.perf_counter()
+            run(engines[mode])
+            times[mode].append(1e3 * (time.perf_counter() - t))
+    out = {}
+    for mode in ("eager", "graph"):
+        step = statistics.median(times[mode])
+        out[mode] = {"step_ms": step, **_step_profile(torch, lambda: run(engines[mode]), step)}
+    return out
 
 
 def phase_graphs(torch, np, report, card, engine):
@@ -1954,18 +2103,7 @@ def phase_graphs(torch, np, report, card, engine):
         "sr_tiled_2048": lambda e: e.sr_tiled(canvas2048, "sr-x2"),
     }
     for cell, fn in cells.items():
-        times: dict = {"graph": [], "eager": []}
-        for mode in ("eager", "graph", "graph", "eager"):
-            e = engine if mode == "graph" else eager
-            fn(e)
-            for _ in range(GRAPH_STEP_REPS):
-                t = time.perf_counter()
-                fn(e)
-                times[mode].append(1e3 * (time.perf_counter() - t))
-        steps[cell] = {}
-        for mode, e in (("eager", eager), ("graph", engine)):
-            step = statistics.median(times[mode])
-            steps[cell][mode] = {"step_ms": step, **_step_profile(torch, lambda: fn(e), step)}
+        steps[cell] = _eager_graph_steps(torch, fn, {"eager": eager, "graph": engine}, GRAPH_STEP_REPS)
         print(json.dumps({f"graph_step_{cell}": steps[cell]}), flush=True)
     out["steps"] = steps
     out["seconds"] = time.perf_counter() - t_phase

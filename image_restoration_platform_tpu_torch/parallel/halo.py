@@ -10,6 +10,11 @@ to slot, which is the same exchange seen from one controller.
 
 Blocks are NHWC, [N, H_loc, W, C]: the rows are dim 1, and the exchange
 and the crops act there, before a convolution permutes to NCHW.
+
+The exchange reads nothing on the host and allocates and copies the same
+tensors, of shapes fixed by the blocks', on every call, so a CUDA graph
+holds it where every slot is one device (``mesh.capture_plan``); a copy
+between distinct devices is the one thing a capture cannot hold.
 """
 
 from __future__ import annotations

@@ -18,12 +18,15 @@ slot may repeat a device: ``[cuda:0] * 4`` runs a four-slot mesh on one card
 ``[cpu] * 8`` is the tests' counterpart of the reference's eight virtual
 CPU devices. Only the data axis spans processes, through
 ``torch.distributed`` (``maybe_initialize_distributed``), as the
-reference's data axis spans hosts.
+reference's data axis spans hosts. ``capture_plan`` says, from the layout
+alone, which mesh programs a CUDA graph can hold: those whose slots are one
+device.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -73,6 +76,42 @@ class Mesh:
         return f"Mesh({self.shape}, slots={[str(d) for d in self.devices.flat]})"
 
 
+@dataclass(frozen=True)
+class CapturePlan:
+    """Where each mesh program may be captured as CUDA graphs: the one
+    device every slot it touches is, or None where it touches distinct
+    devices. A capture records work on one device's stream; an op that a
+    capture issues on another device's tensors runs on that device's
+    stream, which is not capturing, so it runs once, eagerly, and is
+    missing from every replay. So a program over distinct devices runs
+    eagerly, and the plan is decided from the layout before any capture.
+
+    ``rows``: each data row's restore program (the row's tensor slots);
+    ``grid``: the data and tensor slots together (the tiled SR program,
+    which gathers every row's tiles on the first slot, and the train
+    step, which gathers every row's outputs and gradients there);
+    ``spatial``: the spatial slots (``sr_spatial``)."""
+
+    rows: tuple
+    grid: torch.device | None
+    spatial: torch.device | None
+
+
+def _one_device(slots) -> torch.device | None:
+    devices = {torch.device(d) for d in slots}
+    return devices.pop() if len(devices) == 1 else None
+
+
+def capture_plan(mesh: Mesh) -> CapturePlan:
+    """The capture plan of ``mesh``'s layout (no device is touched)."""
+    d = mesh.devices
+    return CapturePlan(
+        rows=tuple(_one_device(d[i, :, 0, 0]) for i in range(d.shape[0])),
+        grid=_one_device(d[:, :, 0, 0].flat),
+        spatial=_one_device(d[0, 0, :, 0]),
+    )
+
+
 def _check_device(device: torch.device) -> torch.device:
     """A CUDA slot needs its card: no slot falls back to the CPU."""
     device = torch.device(device)
@@ -110,11 +149,20 @@ def maybe_initialize_distributed(backend: str | None = None) -> bool:
     return True
 
 
+def process_group_backend() -> str | None:
+    """The backend of the process group this process joined, or None."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return str(dist.get_backend())
+    return None
+
+
 def process_span() -> tuple[int, int]:
     """(processes, this rank) of the data axis: (1, 0) without a process group."""
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
+    if process_group_backend() is not None:
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
 

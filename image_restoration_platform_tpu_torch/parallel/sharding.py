@@ -55,9 +55,16 @@ def split_rows(x: torch.Tensor, devices: list) -> list[torch.Tensor]:
     return [part.to(d) for part, d in zip(x.chunk(len(devices), dim=1), devices)]
 
 
-def gather(parts: list[torch.Tensor], device: torch.device, dim: int = 0) -> torch.Tensor:
-    """The shards joined on one slot."""
-    return torch.cat([p.to(device) for p in parts], dim=dim)
+def gather(parts: list[torch.Tensor], device: torch.device, dim: int = 0,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """The shards joined on one slot; with ``out`` (on that slot, of the
+    joined shape) copied into it in place, so a caller that gathers every
+    step keeps one buffer."""
+    if out is None:
+        return torch.cat([p.to(device) for p in parts], dim=dim)
+    for p, chunk in zip(parts, out.split([p.shape[dim] for p in parts], dim=dim)):
+        chunk.copy_(p)
+    return out
 
 
 class _ColumnParallel(nn.Module):
@@ -152,23 +159,35 @@ def _slices(module: nn.Module, prefix: str = ""):
         yield from _slices(child, f"{prefix}{name}.")
 
 
-def gather_state(module: nn.Module, device: torch.device, grads: bool = False) -> dict[str, torch.Tensor]:
-    """The unsharded parameters of a (possibly column-parallel) module, or
-    with ``grads`` their gradients (zeros where none), joined on
-    ``device`` under the unsharded module's names."""
+def gather_state(module: nn.Module, device: torch.device) -> dict[str, torch.Tensor]:
+    """The unsharded parameters of a (possibly column-parallel) module,
+    joined on ``device`` under the unsharded module's names."""
     out = {}
     for name, parts, dim in _slices(module):
-        if grads:
-            parts = [torch.zeros_like(p) if p.grad is None else p.grad for p in parts]
         out[name] = parts[0].detach().to(device) if dim is None else gather(parts, device, dim).detach()
     return out
 
 
-def scatter_state_(module: nn.Module, state: dict[str, torch.Tensor]) -> None:
-    """Copy unsharded tensors into a (possibly column-parallel) module's
-    parameters, slice by slice."""
+def _chunks(full: torch.Tensor, parts: list, dim: int | None) -> list[torch.Tensor]:
+    """The views of an unsharded tensor that a module's slices hold."""
+    return [full] if dim is None else list(full.chunk(len(parts), dim))
+
+
+def accumulate_grads_(module: nn.Module, into: dict[str, torch.Tensor]) -> None:
+    """Add a (possibly column-parallel) module's gradients into ``into``,
+    preallocated unsharded tensors under the unsharded module's names,
+    slice by slice in place. Every parameter must hold a gradient."""
     with torch.no_grad():
         for name, parts, dim in _slices(module):
-            full = state[name]
-            for p, chunk in zip(parts, [full] if dim is None else full.chunk(len(parts), dim)):
+            for p, chunk in zip(parts, _chunks(into[name], parts, dim)):
+                chunk.add_(p.grad.to(chunk.device))
+
+
+def scatter_state_(module: nn.Module, state: dict[str, torch.Tensor]) -> None:
+    """Copy unsharded tensors into a (possibly column-parallel) module's
+    parameters, slice by slice, in place (a CUDA graph that holds the
+    parameters stays valid)."""
+    with torch.no_grad():
+        for name, parts, dim in _slices(module):
+            for p, chunk in zip(parts, _chunks(state[name], parts, dim)):
                 p.copy_(chunk)

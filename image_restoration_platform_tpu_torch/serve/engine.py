@@ -35,8 +35,17 @@ eagerly. ``eager=True`` runs them eagerly on the card too, for comparisons;
 a capture that fails raises. One lock (``_run_lock``) is held from the copy
 into an executable's static inputs, through its replays and host flags, to
 the enqueue of the packed copy of its outputs, so two batches in flight
-never share the static buffers; the fetch runs outside it. The mesh data
-paths stay eager (under the same lock).
+never share the static buffers; the fetch runs outside it.
+
+The mesh surfaces go through the same tier under the reference's tags,
+which carry the mesh's shape (``_mesh_key``): ``("mesh", family, mesh)``
+for ``restore_batch`` (one executable a data row, on the row's home device
+with its own replica, replayed segment-major: serve/exec_cache.py
+``MeshExecutable``), ``("sr_tiled_mesh", family, tile, overlap,
+tile_batch, output, mesh)`` and ``("sr_spatial", family, canvas shape,
+mesh)``, each captured whole. A program whose slots are distinct devices
+runs eagerly under its key (``parallel.mesh.capture_plan``, decided from
+the layout before any capture; ``exec_stats()["eager_executables"]``).
 """
 
 from __future__ import annotations
@@ -54,12 +63,11 @@ from ..models.nn import cast_for_compute
 from ..models.registry import check_attention_shapes
 from ..obs.metrics import get_counters
 from ..obs.tracing import device_trace, get_tracer
-from ..parallel.mesh import AXIS_DATA, AXIS_SPATIAL
-from ..parallel.sharding import gather, replicate, shard_params, split_batch
+from ..parallel.mesh import AXIS_DATA, AXIS_SPATIAL, capture_plan
+from ..parallel.sharding import replicate, shard_params
 from ..utils.logging import get_logger
-from .exec_cache import EagerExecutable, ExecCache, GraphExecutable, exec_key
+from .exec_cache import EagerExecutable, ExecCache, GraphExecutable, MeshExecutable, capture_stream, exec_key
 from .programs.restore import STAGE_FIRES
-from .programs.restore import fire_flags as _fire_flags
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -157,6 +165,7 @@ class RestorationEngine:
         self._exec_cache = ExecCache()
         self._run_lock = threading.Lock()  # static buffers: one executable runs at a time
         self._graph_pool = None  # every graph's memory pool, made at the first capture
+        self._capture_streams: dict = {}  # one capture stream a card
         self.device_seconds_total = 0.0
         self._acct_lock = threading.Lock()
         self._device_busy_until = 0.0
@@ -184,6 +193,16 @@ class RestorationEngine:
 
     def _is_multi_device(self) -> bool:
         return self.mesh is not None and self.mesh.size > 1
+
+    def _mesh_key(self) -> tuple:
+        """The mesh's shape, the component of the mesh surfaces' keys."""
+        if self.mesh is None:
+            return ()
+        return tuple(sorted(self.mesh.shape.items()))
+
+    def _homes(self) -> list[torch.device]:
+        """Each data row's first slot, where its shard of a batch goes."""
+        return [self.mesh.tensor_slots(i)[0] for i in range(self.mesh.shape[AXIS_DATA])]
 
     # ----------------------------------------------------- models/programs
 
@@ -265,22 +284,55 @@ class RestorationEngine:
             structural += (("egress", egress),)
         return exec_key(tag, structural, args)
 
-    def _executable(self, tag, args, program, model, egress: str | None = None):
+    def _executable(self, tag, args, program, model, egress: str | None = None, across_devices: bool = False):
         """The executable of ``program`` for ``args`` (host tensors), built
-        on first use (single flight, counted in ``compile_count``)."""
-        return self._exec_cache.get(self._exec_key(tag, args, egress), lambda: self._build(program, model, args))
+        on first use (single flight, counted in ``compile_count``);
+        ``across_devices``: the layout plan puts the program's slots on
+        distinct devices."""
+        return self._exec_cache.get(
+            self._exec_key(tag, args, egress), lambda: self._build(program, model, args, across_devices=across_devices)
+        )
 
-    def _build(self, program, model, args):
+    def _build(self, program, model, args, home: torch.device | None = None, across_devices: bool = False):
+        """``program``'s executable on ``home`` (the engine's device by
+        default): CUDA graphs on a card, its segments run eagerly on the
+        CPU, with ``eager=True``, or where the program spans devices."""
+        home = self.device if home is None else home
         if self.device.type != "cuda" or self.eager:
-            return EagerExecutable(program, model, self.device)
+            return EagerExecutable(program, model, home)
+        if across_devices:
+            self.logger.warning("a mesh program runs eagerly: its slots are distinct devices",
+                                {"mesh": repr(self.mesh), "home": str(home)})
+            return EagerExecutable(program, model, home, eager_by_plan=True)
         with self._run_lock:  # no replay may run while a capture allocates from the shared pool
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            return GraphExecutable(program, model, args, self.device, self._graph_pool)
+            return GraphExecutable(program, model, args, home, self._graph_pool,
+                                   capture_stream(self._capture_streams, home))
+
+    def _mesh_executable(self, family_name: str, program, args, egress: str):
+        """The restore step of ``args`` (the whole bucket) over the data
+        rows: one executable a row, each on its row's home device with the
+        row's replica (serve/exec_cache.py ``MeshExecutable``)."""
+        replicas = self._data_replicas(family_name)
+
+        def build():
+            shards = list(zip(*(a.chunk(len(replicas)) for a in args)))
+            rows = [self._build(program, replica, shard, home, across_devices=one is None)
+                    for replica, shard, home, one in zip(replicas, shards, self._homes(), capture_plan(self.mesh).rows)]
+            return MeshExecutable(rows, self.device)
+
+        tag = ("mesh", family_name, self._mesh_key())
+        return self._exec_cache.get(self._exec_key(tag, args, egress), build)
 
     def exec_stats(self) -> dict:
-        """compile_count, the executables built and the CUDA graphs captured."""
-        return {"compile_count": self.compile_count, **self._exec_cache.stats()}
+        """compile_count, the executables built and the CUDA graphs
+        captured; on a mesh also the executables (or data rows of one) that
+        a card runs eagerly because their slots are distinct devices."""
+        stats = {"compile_count": self.compile_count, **self._exec_cache.stats()}
+        if self.mesh is not None:
+            stats["eager_executables"] = self._exec_cache.count("eager_by_plan")
+        return stats
 
     # ------------------------------------------------------------ serving
 
@@ -352,16 +404,11 @@ class RestorationEngine:
                 args += (noise,)
             if dp == 1:
                 executable = self._executable(family_name, args, program, model, egress)
-                with self._run_lock:
-                    outs = executable(args)  # (*out, scores, flags)
-                    packed = _pack(outs)
             else:
-                with self._run_lock:
-                    out, scores, flags = self._run_data_parallel(
-                        family_name, program, tuple(a.to(self.device) for a in args)
-                    )
-                    outs = (*(out if isinstance(out, tuple) else (out,)), scores, flags)
-                    packed = _pack(outs)
+                executable = self._mesh_executable(family_name, program, args, egress)
+            with self._run_lock:
+                outs = executable(args)  # (*out, scores, flags)
+                packed = _pack(outs)
 
         def fetch():
             t_fetch = time.perf_counter()
@@ -386,26 +433,6 @@ class RestorationEngine:
             return arrays[0], scores_h, meta
 
         return fetch
-
-    def _run_data_parallel(self, family_name: str, program, args: tuple):
-        """The program on every data slot's shard of ``args`` with that
-        slot's replica; (out, scores, fire flags) gathered on the first
-        slot."""
-        replicas = self._data_replicas(family_name)
-        homes = [self.mesh.tensor_slots(i)[0] for i in range(len(replicas))]
-        shards = [split_batch(a, homes) for a in args]
-        outs, scores, flags = [], [], []
-        for i, (model, home) in enumerate(zip(replicas, homes)):
-            fires: dict = {}
-            out_i, scores_i = program(model, *(s[i] for s in shards), fires=fires)
-            outs.append(out_i)
-            scores.append(scores_i)
-            flags.append(_fire_flags(fires, scores_i.shape[0], home))
-        if isinstance(outs[0], tuple):  # plane egress: gather plane by plane
-            out = tuple(gather([o[k] for o in outs], self.device) for k in range(len(outs[0])))
-        else:
-            out = gather(outs, self.device)
-        return out, gather(scores, self.device), gather(flags, self.device)
 
     # ------------------------------------------- fusion, super-resolution
 
@@ -434,12 +461,10 @@ class RestorationEngine:
         }
         return tuple(arrays), meta
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return _host(array).to(self.device)
-
-    def _run_executable(self, label: str, tag, program, model, args, family_name: str, **extra):
+    def _run_executable(self, label: str, tag, program, model, args, family_name: str, across_devices: bool = False,
+                        **extra):
         """``_run_sync`` of the executable of ``tag`` for ``args``."""
-        executable = self._executable(tag, args, program, model)
+        executable = self._executable(tag, args, program, model, across_devices=across_devices)
         return self._run_sync(label, lambda: executable(args), family_name, **extra)
 
     def fuse_batch(
@@ -526,21 +551,18 @@ class RestorationEngine:
         label = f"sr_tiled/{family_name}/{size}t{tile}"
         if self._is_multi_device():
             models = self._data_replicas(family_name)
-            slots = [self.mesh.tensor_slots(i)[0] for i in range(len(models))]
+            tag = ("sr_tiled_mesh", family_name, tile, overlap, tile_batch, output)
             program = self._cached_program(
-                ("sr_tiled_mesh", family_name, tile, overlap, tile_batch, output),
+                tag,
                 lambda: build_sr_tiled_mesh_program(
-                    family_name, dtype=self.dtype, slots=slots, tile=tile, overlap=overlap,
+                    family_name, dtype=self.dtype, slots=self._homes(), tile=tile, overlap=overlap,
                     tile_batch=tile_batch, output=output,
                 ),
             )
-            canvas = self._to_device(canvas_u8)
-
-            def run():
-                out = program(models, canvas)
-                return out if isinstance(out, tuple) else (out,)
-
-            outs, meta = self._run_sync(label, run, family_name, tile=tile, overlap=overlap)
+            outs, meta = self._run_executable(
+                label, (*tag, self._mesh_key()), program, models, (_host(canvas_u8),), family_name,
+                across_devices=capture_plan(self.mesh).grid is None, tile=tile, overlap=overlap,
+            )
         else:
             tag = ("sr_tiled", family_name, tile, overlap, tile_batch, output)
             program = self._cached_program(
@@ -580,9 +602,9 @@ class RestorationEngine:
         h = canvas_u8.shape[0]
         models = self._spatial_replicas(family_name)
         get_counters().inc(f"sr_spatial_calls.{h}")
-        canvas = self._to_device(canvas_u8)
-        (out,), meta = self._run_sync(
-            f"sr_spatial/{family_name}/{h}", lambda: (program(models, canvas),), family_name,
+        (out,), meta = self._run_executable(
+            f"sr_spatial/{family_name}/{h}", ("sr_spatial", family_name, canvas_u8.shape, self._mesh_key()), program,
+            models, (_host(canvas_u8),), family_name, across_devices=capture_plan(self.mesh).spatial is None,
             spatialShards=sp, halo=halo, paddedRows=pad_rows,
         )
         return (out[: h_in * scale] if pad_rows else out), meta

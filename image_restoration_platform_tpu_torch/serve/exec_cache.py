@@ -23,19 +23,28 @@ branch, replayed with the host reading the stage flags between them:
   the launches its graph holds;
 - ``EagerExecutable``: the segments run eagerly under the same key. It is
   the executable on the CPU, where nothing is captured (so the key, the
-  single-flight gate and the branch selection are all exercised there), and
-  on the card only for an engine built with ``eager=True`` to compare
-  replay with eager execution. A capture that fails raises; nothing falls
-  back to eager execution.
+  single-flight gate and the branch selection are all exercised there); on
+  the card for an engine built with ``eager=True`` to compare replay with
+  eager execution, and for a mesh program whose slots are distinct devices
+  (``parallel.mesh.capture_plan`` decides that from the layout before any
+  capture; ``eager_by_plan`` marks it). A capture that fails raises;
+  nothing falls back to eager execution;
+- ``MeshExecutable``: a restore step over a mesh's data rows, one
+  executable a row on the row's home device, run segment-major
+  (``run_segment_major``: segment k of every row, then every row's flag,
+  then segment k + 1), so the host waits on the device three times a step
+  whatever the number of rows.
 
 No disk tier: a CUDA graph holds one process's device addresses and cannot
 be serialised. What does persist across processes is the kernels' nvcc
 builds (``build/kernels``, ops/cuda/build.py).
 
-Every graph of an engine shares one memory pool: a segment's results are
-copied into buffers outside the pool, so nothing a graph leaves behind
-lives in it, and the engine replays one executable at a time, so any order
-of replays is safe. The warm-up captures the largest shapes first, so the
+Every graph of an engine shares one memory pool (the data rows' graphs
+and the unsharded ones alike): a segment's results are copied into buffers
+outside the pool, so nothing a graph leaves behind lives in it, and the
+graphs of one device replay one at a time on its stream, so any order of
+replays is safe (rows on distinct devices draw on each device's own part
+of the pool). The warm-up captures the largest shapes first, so the
 smaller graphs after them take blocks the larger ones left in the pool.
 """
 
@@ -45,6 +54,7 @@ import threading
 
 import torch
 
+from ..parallel.sharding import gather
 from .programs.segments import Program, decide
 
 
@@ -90,12 +100,17 @@ class ExecCache:
                 self._building.pop(key, None)
             flight.set()
 
+    def count(self, attribute: str) -> int:
+        """The sum of an executable attribute (0 where absent) over the built executables."""
+        with self._lock:
+            executables = list(self._built.values())
+        return sum(getattr(e, attribute, 0) for e in executables)
+
     def stats(self) -> dict:
         """Executables built and CUDA graphs captured."""
         with self._lock:
-            executables = list(self._built.values())
-        return {"executables": len(executables),
-                "graphs": sum(getattr(e, "graph_count", 0) for e in executables)}
+            built = len(self._built)
+        return {"executables": built, "graphs": self.count("graph_count")}
 
 
 def _kernels() -> tuple:
@@ -132,19 +147,89 @@ class LaunchDelta:
                 kernel.launches_by_variant[v] += n
 
 
+def run_segment_major(executables: list, shards: list) -> None:
+    """Run ``executables`` (one a data row, each on its shard of the
+    arguments) segment by segment across them: segment k of every row is
+    queued, then every row's flag for segment k + 1 is read, then segment
+    k + 1 of every row. The host waits on the device once a decision, not
+    once a decision a row, and each row still takes its own branch from its
+    own flag. One executable is the plain case."""
+    with torch.inference_mode():  # the static buffers are inference tensors
+        for executable, args in zip(executables, shards):
+            executable.begin(args)
+        for k in range(len(executables[0].segments)):
+            taken = [executable.decide(k) for executable in executables]
+            for executable, branch in zip(executables, taken):
+                executable.run(k, branch)
+
+
 class EagerExecutable:
     """The program's segments run eagerly on ``device`` (host arguments are
-    copied there first)."""
+    copied there first). ``eager_by_plan``: a card runs it eagerly because
+    the mesh's layout puts the program across distinct devices
+    (``parallel.mesh.capture_plan``). One call at a time (the engine's run
+    lock): the state of the call in progress is the executable's."""
 
-    def __init__(self, program: Program, model, device: torch.device):
+    def __init__(self, program: Program, model, device: torch.device, eager_by_plan: bool = False):
         self.program, self.model, self.device = program, model, torch.device(device)
+        self.eager_by_plan = int(eager_by_plan)
+
+    def begin(self, args) -> None:
+        args = tuple(a.to(self.device) for a in args)
+        if len(args) != len(self.program.inputs):
+            raise TypeError(f"the program takes {self.program.inputs}, got {len(args)} arguments")
+        self.segments = self.program.segments(self.model, args)
+        self._state = dict(zip(self.program.inputs, args))
+
+    def decide(self, k: int) -> bool:
+        return decide(self.segments[k], self._state)
+
+    def run(self, k: int, taken: bool) -> None:
+        self._state = {**self._state, **self.segments[k].run(self._state, taken)}
+        if k == len(self.segments) - 1:  # keep the outputs, not the call's intermediates
+            self._state = {name: self._state[name] for name in self.program.outputs}
+
+    @property
+    def outputs(self) -> tuple[torch.Tensor, ...]:
+        return tuple(self._state[name] for name in self.program.outputs)
 
     def __call__(self, args) -> tuple[torch.Tensor, ...]:
-        return self.program.run(self.model, tuple(a.to(self.device) for a in args))[1]
+        run_segment_major([self], [args])
+        return self.outputs
 
 
 def _spec(updates: dict) -> dict:
     return {name: (tuple(v.shape), v.dtype) for name, v in updates.items()}
+
+
+def capture_stream(streams: dict, device) -> torch.cuda.Stream:
+    """The capture stream of ``device`` in ``streams`` (its owner's dict,
+    filled on first use). ``torch.cuda.graph``'s default capture stream is
+    made once, on the card current at the process's first capture, so a
+    capture for another card on it fails; and graphs that share a memory
+    pool reuse each other's freed blocks only when captured on one stream,
+    so an owner captures all its graphs of a card on one stream."""
+    device = _indexed(device)
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _check_placement(model, device: torch.device) -> None:
+    """A capture records one device's stream: every parameter and buffer of
+    ``model`` (a module, a list of them, or None) must be on ``device``."""
+    modules = [] if model is None else model if isinstance(model, list) else [model]
+    elsewhere = {str(t.device) for m in modules for t in (*m.parameters(), *m.buffers()) if t.device != device}
+    if elsewhere:
+        raise RuntimeError(f"a capture on {device} would touch tensors on {sorted(elsewhere)}")
 
 
 class GraphExecutable:
@@ -153,10 +238,14 @@ class GraphExecutable:
     Calling it copies the arguments into the static inputs, then replays
     segment after segment, the host picking each branch from the flag the
     segment before left; it returns the static output buffers, which the
-    next call overwrites."""
+    next call overwrites. ``begin``, ``decide`` and ``run`` are the steps
+    of a call, which ``run_segment_major`` interleaves across data rows.
+    ``stream`` is the capture stream, a stream of ``device``
+    (``capture_stream``)."""
 
-    def __init__(self, program: Program, model, args, device: torch.device, pool):
-        self.device = torch.device(device)
+    def __init__(self, program: Program, model, args, device: torch.device, pool, stream):
+        self.device = _indexed(device)
+        _check_placement(model, self.device)
         with torch.inference_mode(), torch.cuda.device(self.device):
             self.inputs = tuple(torch.empty(tuple(a.shape), dtype=a.dtype, device=self.device) for a in args)
             for buf, a in zip(self.inputs, args):
@@ -179,7 +268,7 @@ class GraphExecutable:
                     graph = torch.cuda.CUDAGraph()
                     counts = LaunchDelta()
                     try:
-                        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                        with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
                             updates = segment.run(state, taken)
                             if _spec(updates) != spec:
                                 raise RuntimeError(f"segment {segment.decision} changed its outputs under capture")
@@ -215,12 +304,51 @@ class GraphExecutable:
         torch.cuda.synchronize(self.device)
         return results
 
-    def __call__(self, args) -> tuple[torch.Tensor, ...]:
-        with torch.inference_mode():  # the static buffers are inference tensors
+    def begin(self, args) -> None:
+        with torch.cuda.device(self.device):
             for buf, a in zip(self.inputs, args):
                 buf.copy_(a)
-            for segment, branches in zip(self.segments, self._graphs):
-                graph, counts = branches[decide(segment, self._state)]
-                graph.replay()
-                counts.replay()
+
+    def decide(self, k: int) -> bool:
+        return decide(self.segments[k], self._state)
+
+    def run(self, k: int, taken: bool) -> None:
+        graph, counts = self._graphs[k][taken]
+        with torch.cuda.device(self.device):  # a replay goes to the current device's stream
+            graph.replay()
+        counts.replay()
+
+    def __call__(self, args) -> tuple[torch.Tensor, ...]:
+        run_segment_major([self], [args])
         return self.outputs
+
+
+class MeshExecutable:
+    """A restore step over a mesh's data rows: one executable a row (a
+    ``GraphExecutable`` on the row's home device, or an ``EagerExecutable``
+    where the layout plan puts the row across distinct devices), each with
+    its own replica, static inputs, segments and branches, run
+    segment-major (``run_segment_major``). Calling it splits the host
+    batch into equal shards, one a row, which each row copies into its own
+    inputs, and gathers the rows' outputs into fixed buffers on ``primary``
+    (the first slot, where the engine's one fetch reads them); the next
+    call overwrites those."""
+
+    def __init__(self, rows: list, primary: torch.device):
+        self.rows, self.primary = rows, torch.device(primary)
+        self.graph_count = sum(getattr(row, "graph_count", 0) for row in rows)
+        self.eager_by_plan = sum(getattr(row, "eager_by_plan", 0) for row in rows)
+        self._outputs: tuple | None = None
+
+    def __call__(self, args) -> tuple[torch.Tensor, ...]:
+        n = len(self.rows)
+        if any(a.shape[0] % n for a in args):
+            raise ValueError(f"batch {args[0].shape[0]} not divisible by {n} data rows")
+        run_segment_major(self.rows, list(zip(*(a.chunk(n) for a in args))))
+        parts = list(zip(*(row.outputs for row in self.rows)))
+        with torch.inference_mode():
+            if self._outputs is None:
+                self._outputs = tuple(
+                    torch.empty((n * p[0].shape[0], *p[0].shape[1:]), dtype=p[0].dtype, device=self.primary)
+                    for p in parts)
+            return tuple(gather(list(p), self.primary, out=buf) for p, buf in zip(parts, self._outputs))

@@ -12,6 +12,9 @@ Counterpart of image_restoration_platform_tpu/serve/programs/sr.py:
 - ``build_sr_spatial_program``: ONE canvas split by rows over the spatial
   slots, every convolution exchanging a one-row halo; the limiter runs once
   on the gathered canvas.
+
+Each is a ``Program`` of one segment (serve/programs/segments.py), so the
+engine's executable tier captures it whole where its slots are one device.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ...models import get_family, srnet
-from ...ops.tile import tile_image, tiled_apply
+from ...ops.tile import tile_grid, tile_image, tiled_apply
 from ...parallel.halo import spatial_shard_model_apply
 from ...parallel.mesh import AXIS_SPATIAL
 from ...parallel.sharding import gather, split_batch
@@ -64,14 +67,16 @@ def build_sr_tiled_program(
 
 def build_sr_tiled_mesh_program(
     family_name: str, *, dtype: torch.dtype, slots: list, tile: int, overlap: int, tile_batch: int, output: str,
-):
+) -> Program:
     """``fn(models, canvas [H,W,3] u8)``, ``models`` the network on each of
     the data ``slots`` and the canvas on the first: the tiles are cut on the
     first slot and taken in chunks of ``tile_batch`` x the data size (the
     last filled by repeating the last tile), each chunk split evenly over
     the slots; the restored tiles are gathered on the first slot and blended
     there in one launch. Each slot sees chunks of ``tile_batch`` tiles, as
-    the single-device program does, so the output is the same."""
+    the single-device program does, so the output is the same. One
+    segment; the padding and the chunks are fixed from the canvas shape
+    when the segments are made, so a capture holds them."""
     from ...ops.cuda.blend import blend_tiles
 
     if output not in ("rgb", "yuv420"):
@@ -80,17 +85,19 @@ def build_sr_tiled_mesh_program(
     dp = len(slots)
     mesh_chunk = tile_batch * dp
 
-    def program(models, canvas):
-        with torch.inference_mode():
-            h, w, _ = canvas.shape
-            tiles, ys, xs = tile_image(canvas.float(), tile, overlap)
-            n = tiles.shape[0]
-            pad = (-n) % mesh_chunk if n > mesh_chunk else (-n) % dp
+    def pieces(models, shapes):
+        h, w, _ = shapes[0]
+        stride = tile - overlap
+        n = len(tile_grid(h, tile, stride)) * len(tile_grid(w, tile, stride))
+        pad = (-n) % mesh_chunk if n > mesh_chunk else (-n) % dp
+        step = min(mesh_chunk, n + pad)
+
+        def run(s):
+            tiles, ys, xs = tile_image(s["canvas"].float(), tile, overlap)
             if pad:
                 tiles = torch.cat([tiles, tiles[-1:].expand(pad, -1, -1, -1)], dim=0)
-            step = min(mesh_chunk, tiles.shape[0])
             chunks = []
-            for i in range(0, tiles.shape[0], step):
+            for i in range(0, n + pad, step):
                 shards = split_batch(tiles[i : i + step], slots)
                 outs = [m(t.to(dtype) / 255.0).float() * 255.0 for m, t in zip(models, shards)]
                 chunks.append(gather(outs, slots[0]))
@@ -98,9 +105,12 @@ def build_sr_tiled_mesh_program(
             out = blend_tiles(
                 out_tiles, (h * scale, w * scale), tuple(y * scale for y in ys), tuple(x * scale for x in xs)
             )
-            return _emit(out, output)
+            emitted = _emit(out, output)
+            return dict(zip(PLANES, emitted)) if output == "yuv420" else {"out": emitted}
 
-    return program
+        return [Piece(run)]
+
+    return Program(("canvas",), pieces, PLANES if output == "yuv420" else ("out",))
 
 
 def build_sr_spatial_program(family_name: str, *, dtype: torch.dtype, mesh):
@@ -112,7 +122,8 @@ def build_sr_spatial_program(family_name: str, *, dtype: torch.dtype, mesh):
     the limiter is local in (input, output), so the result is the
     single-device forward's up to convolution round-off. (The reference
     feeds its limiter here the f32 input, which its single-device forward
-    never sees in bf16; this program feeds the input in the compute type.)"""
+    never sees in bf16; this program feeds the input in the compute type.)
+    ``fn`` is a ``Program`` of one segment."""
     cfg = get_family(family_name).config
 
     def local_fn(models, blocks):
@@ -121,14 +132,17 @@ def build_sr_spatial_program(family_name: str, *, dtype: torch.dtype, mesh):
 
     sharded_apply = spatial_shard_model_apply(local_fn, mesh)
 
-    def program(models, canvas):
-        with torch.inference_mode():
-            canvas_f = canvas.float()[None]
+    def pieces(models, shapes):
+        def run(s):
+            canvas_f = s["canvas"].float()[None]
             out = sharded_apply(models, canvas_f)
             if cfg.limit_pool > 0:
                 # the limiter reads the input as the network did, in the
                 # compute type, as the single-device forward's limiter does
                 out = srnet.residual_limit(canvas_f.to(dtype) / 255.0, out / 255.0, cfg) * 255.0
-            return _emit(out[0], "rgb")
+            return {"out": _emit(out[0], "rgb")}
 
+        return [Piece(run)]
+
+    program = Program(("canvas",), pieces, ("out",))
     return program, srnet.receptive_halo(cfg), cfg.scale, mesh.shape[AXIS_SPATIAL]

@@ -12,7 +12,11 @@ and, where the restorator takes it, YCbCr-plane egress; SR families warm the dir
 modes; the ``"fusion"`` pseudo-surface warms k-image fuse_batch
 (SERVE_WARMUP / SERVE_WARMUP_FAMILIES, api/app.py). The largest shapes go
 first: every graph of an engine shares one memory pool, which then settles
-at the largest graph's working memory.
+at the largest graph's working memory. On a mesh engine the same calls
+build the mesh executables (the ``"mesh"`` restore step of every bucket the
+data axis rounds to, ``"sr_tiled_mesh"``), and on a spatial mesh the SR
+families warm ``sr_spatial`` at every canvas the restorator row-shards in
+place of the tiled programs.
 """
 
 from __future__ import annotations
@@ -32,6 +36,12 @@ def _batch_buckets(max_batch: int) -> tuple[int, ...]:
 
 def _largest_first(values) -> tuple[int, ...]:
     return tuple(sorted(values, reverse=True))
+
+
+def _spatial_mesh(engine) -> bool:
+    from ..parallel.mesh import AXIS_SPATIAL
+
+    return engine.mesh is not None and engine.mesh.shape[AXIS_SPATIAL] > 1
 
 
 def _restore_egresses(engine, family_name: str) -> tuple[str, ...]:
@@ -106,6 +116,13 @@ def warmup_serving(
                     img = np.zeros((1, size, size, 3), dtype=np.uint8)
                     timed(f"{fam}/direct/{size}", lambda i=img, f=fam: engine.sr_batch(i, f))
             tc = sr_tiled_canvas or engine.SR_TILED_CANVAS
+            if _spatial_mesh(engine):
+                # on a spatial mesh the restorator row-shards every canvas
+                # above the direct threshold (restorator._restore_sr)
+                for size in _largest_first({s for s in sizes if s > engine.SR_TILE_THRESHOLD} | {tc}):
+                    canvas = np.zeros((size, size, 3), dtype=np.uint8)
+                    timed(f"{fam}/spatial/{size}", lambda c=canvas, f=fam: engine.sr_spatial(c, f))
+                continue
             canvas = np.zeros((tc, tc, 3), dtype=np.uint8)
             tile = min(256, tc)  # clamp for small test canvases
             # yuv420 planes egress is what the serving path takes for huge

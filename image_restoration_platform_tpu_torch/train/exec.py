@@ -7,17 +7,23 @@ and ``synthetic_batch`` jitted once per ``DataConfig``
 (image_restoration_platform_tpu/train/data.py). ``Trainer`` builds them
 through serve/exec_cache.py's ``ExecCache`` (``exec_key``, the single-flight
 gate, ``compile_count``), one graph memory pool per trainer, and runs the
-same step and draw eagerly under the same keys on the CPU, under a mesh and
-with ``eager=True``:
+same step and draw eagerly under the same keys on the CPU, with
+``eager=True`` and for a mesh that one capture cannot hold
+(``EagerStep``):
 
-- ``TrainGraph``: one single-device step (``TrainStep.update``: forward,
-  loss, backward, global-norm clip, fused AdamW) captured whole, after
+- ``TrainGraph``: one step (``TrainStep.update``: forward, loss, backward,
+  global-norm clip, fused AdamW; under a mesh every data row's forward and
+  backward, the copies' gradients summed into the model's, the process
+  group's collectives, and the updated parameters copied into the
+  replicas) captured whole, after
   PyTorch's recipe for capturing a network: static inputs for the batch
-  (degraded, clean, cond, anchor); gradients allocated before the capture
-  and zeroed inside it, never set to ``None``; warm-up steps on a side
-  stream (the kernels' builds, cuDNN and cuBLAS plans, the optimizer's
-  state) whose updates are undone before the capture, so the trainer's
-  state is what it was; the loss written into a static buffer. The host
+  (degraded, clean, cond, anchor); gradients (the replicas' too)
+  allocated before the capture and zeroed inside it, never set to
+  ``None``; warm-up steps on a side stream (the kernels' builds, cuDNN and
+  cuBLAS plans, the optimizer's state, an NCCL group's communicator) whose
+  updates are undone before the capture, the replicas' with the model's,
+  so the trainer's state is what it was; the loss written into a static
+  buffer. The host
   part of a step (``TrainStep.prepare``: the schedule's lr into the
   optimizer's device tensor, the step's noise seed) runs before every
   replay. The diffusion branches' generator is registered with the graph,
@@ -28,8 +34,10 @@ with ``eager=True``:
   data generator registered, so replays continue its stream exactly as
   eager draws would; the outputs are static buffers.
 
-Every graph's results are copied into buffers outside the pool (the
-gradients, the optimizer's state and the parameters were never in it), so
+A trainer captures all its graphs on one capture stream of its card
+(serve/exec_cache.py ``capture_stream``). Every graph's results are copied
+into buffers outside the pool (the gradients, the optimizer's state and the
+parameters were never in it), so
 nothing a graph leaves behind lives there, and the trainer replays one
 graph at a time, in any order.
 """
@@ -57,16 +65,30 @@ def _side_stream_run(device: torch.device, fn, times: int):
     return out
 
 
+class EagerStep:
+    """The train step of ``step`` on ``state`` run eagerly under its key.
+    ``eager_by_plan``: a card runs it eagerly because one capture cannot
+    hold the mesh step (``Trainer._eager_by_plan``)."""
+
+    graph_count = 0
+
+    def __init__(self, step, state, eager_by_plan: bool = False):
+        self.step, self.state, self.eager_by_plan = step, state, int(eager_by_plan)
+
+    def __call__(self, batch) -> torch.Tensor:
+        return self.step(self.state, *batch)
+
+
 class TrainGraph:
-    """The single-device train step of ``step`` on ``state`` captured as one
-    CUDA graph for batches shaped as ``batch``. Calling it with a batch
+    """The train step of ``step`` on ``state`` captured as one CUDA graph
+    for batches shaped as ``batch``. Calling it with a batch
     copies it into the static inputs, runs the step's host part, replays
     and advances ``state.step``; it returns the static loss buffer, which
     the next call overwrites."""
 
     graph_count = 1
 
-    def __init__(self, step, state, batch, pool):
+    def __init__(self, step, state, batch, pool, stream):
         device = step.device
         self.step, self.state = step, state
         optimizer = state.optimizer
@@ -94,6 +116,7 @@ class TrainGraph:
                             value.copy_(moments[p][key])
                         else:  # made by the warm-up: a fresh optimizer's zeros
                             value.zero_()
+                step.sync_replicas(state)  # the copies of the model hold its restored parameters
             del kept, moments
             self.graph = torch.cuda.CUDAGraph()
             if step.is_diffusion:
@@ -101,7 +124,7 @@ class TrainGraph:
             step.prepare(state)
             counts = LaunchDelta()
             try:
-                with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+                with torch.cuda.graph(self.graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
                     self.loss.copy_(step.update(state, *self.inputs))
             finally:
                 self.counts = counts.close()
@@ -124,7 +147,7 @@ class DataGraph:
 
     graph_count = 1
 
-    def __init__(self, draw, gen: torch.Generator, pool):
+    def __init__(self, draw, gen: torch.Generator, pool, stream):
         device = gen.device
         with torch.cuda.device(device):
             before = gen.get_state()
@@ -132,7 +155,7 @@ class DataGraph:
             gen.set_state(before)  # the warm-up's draw undone
             self.graph = torch.cuda.CUDAGraph()
             self.graph.register_generator_state(gen)
-            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
                 for buf, out in zip(self.outputs, draw()):
                     buf.copy_(out)
 

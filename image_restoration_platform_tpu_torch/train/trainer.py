@@ -13,8 +13,9 @@ Counterpart of image_restoration_platform_tpu/train/trainer.py on one card:
 - executables (train/exec.py): as the reference jits its train step and
   each data distribution's draw, ``Trainer`` runs both through an
   executable tier keyed by their structure: on a card one CUDA graph for
-  the train step and one per ``DataConfig``, replayed every step; on the
-  CPU, under a mesh and with ``eager=True`` the same code eagerly. A step
+  the train step (a mesh step too, where one card holds it) and one per
+  ``DataConfig``, replayed every step; on the CPU, with ``eager=True`` and
+  for a mesh over distinct devices the same code eagerly. A step
   is split for that into its host part (``TrainStep.prepare``: the
   schedule's lr into the optimizer's device tensor, the step's noise seed)
   and its device part (``TrainStep.update``), which reads nothing from the
@@ -47,7 +48,12 @@ Counterpart of image_restoration_platform_tpu/train/trainer.py on one card:
   axis also spans the processes: every process draws the same batch and
   runs its own part, the outputs are exchanged (``all_gather``) so every
   process computes the same loss, and the summed gradients are
-  ``all_reduce``d before the clip.
+  ``all_reduce``d before the clip. Every tensor a mesh step writes (the
+  gradients of the model and of every replica, the sum of the copies'
+  gradients, the exchanges' buffers) is allocated once and written in
+  place, so the mesh step is one CUDA graph where the layout plan puts every
+  data and tensor slot on the trainer's card (``parallel.mesh.capture_plan``)
+  and any process group is NCCL's; elsewhere it runs eagerly under its key.
 """
 
 from __future__ import annotations
@@ -67,13 +73,13 @@ from ..models import weights as weights_mod
 from ..models.diffusion import DiffusionConfig
 from ..models.registry import check_attention_shapes
 from ..models.srnet import SRNet, SRNetConfig
-from ..parallel.mesh import AXIS_DATA, process_span
-from ..parallel.sharding import gather_state, scatter_state_, shard_params
+from ..parallel.mesh import AXIS_DATA, capture_plan, process_group_backend, process_span
+from ..parallel.sharding import accumulate_grads_, scatter_state_, shard_params
 from ..serve.engine import resolve_device
-from ..serve.exec_cache import ExecCache, exec_key
+from ..serve.exec_cache import ExecCache, capture_stream, exec_key
 from ..utils.logging import get_logger
 from .data import DataConfig, synthetic_batch
-from .exec import DataGraph, TrainGraph
+from .exec import DataGraph, EagerStep, TrainGraph
 
 
 @dataclass(frozen=True)
@@ -217,14 +223,21 @@ def clip_by_global_norm_(grads: list[torch.Tensor]) -> torch.Tensor:
 @dataclass
 class TrainState:
     """The model (f32 parameters), its optimizer, and the steps taken; under
-    a mesh also the model's replica on each data row and each row's first
-    slot (``homes``), where its shard of the batch goes."""
+    a mesh also the model's replica on each data row, each row's first
+    slot (``homes``), where its shard of the batch goes, and the buffers
+    the mesh step writes in place (``exchange``)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.AdamW
     step: int = 0
     replicas: list | None = None
     homes: list | None = None
+    exchange: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def copies(self) -> list:
+        """The replicas that are copies of the model (not the model itself)."""
+        return [r for r in self.replicas or () if r is not self.model]
 
 
 class TrainStep:
@@ -365,13 +378,15 @@ class TrainStep:
             lo = (rank * dp + i) * per
             outs.append(self._forward(replica, *(a[lo : lo + per].to(home) for a in inputs)).to(self.device))
         out = torch.cat(outs, dim=0)
-        if processes > 1:
+        if process_group_backend() is not None:
             import torch.distributed as dist
 
-            parts = [torch.empty_like(out) for _ in range(processes)]
+            key = ("gathered", tuple(out.shape), out.dtype)
+            if key not in state.exchange:
+                state.exchange[key] = [torch.empty_like(out) for _ in range(processes)]
+            parts = state.exchange[key]
             dist.all_gather(parts, out.detach().contiguous())
-            parts[rank] = out
-            out = torch.cat(parts, dim=0)
+            out = torch.cat([out if r == rank else part for r, part in enumerate(parts)], dim=0)
         return self._objective(out, degraded, clean, anchor, aux)
 
     def prepare(self, state: TrainState) -> None:
@@ -381,10 +396,12 @@ class TrainStep:
         self.seed(state.step)
 
     def update(self, state: TrainState, degraded, clean, cond, anchor, draws: dict | None = None) -> torch.Tensor:
-        """The device part of a single-device step, which a CUDA graph can
-        hold: the gradients (allocated by ``allocate_grads_``) zeroed in
-        place, the loss and its backward, the global-norm clip and AdamW.
-        Returns the loss before the update."""
+        """The device part of a step, which a CUDA graph can hold: the
+        gradients (allocated by ``allocate_grads_``) zeroed in place, the
+        loss and its backward, the global-norm clip and AdamW; under a mesh
+        ``_mesh_update``. Returns the loss before the update."""
+        if state.replicas is not None:
+            return self._mesh_update(state, degraded, clean, cond, anchor, draws)
         grads = [p.grad for p in trained_params(state.optimizer)]
         torch._foreach_zero_(grads)
         loss = self._loss(state.model, degraded, clean, cond, anchor, draws)
@@ -397,65 +414,66 @@ class TrainStep:
     def allocate_grads_(state: TrainState) -> None:
         """A gradient tensor for every parameter, allocated once: the step
         accumulates into it, and a parameter the loss does not reach keeps
-        zeros, as optax gives it."""
-        for p in trained_params(state.optimizer):
+        zeros, as optax gives it. Under a mesh also the gradients of every
+        copy of the model, the sum of the copies' gradients and the flat
+        buffer of the gradients' ``all_reduce``."""
+        params = trained_params(state.optimizer)
+        for p in params + [p for r in state.copies for p in r.parameters()]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if state.copies and "grads" not in state.exchange:
+            state.exchange["grads"] = {name: torch.zeros_like(p) for name, p in state.model.named_parameters()}
+        if state.replicas is not None and process_group_backend() is not None and "flat" not in state.exchange:
+            state.exchange["flat"] = torch.zeros(sum(p.numel() for p in params), device=params[0].device)
 
     def __call__(self, state: TrainState, degraded, clean, cond, anchor, draws: dict | None = None) -> torch.Tensor:
         """One step, eagerly: loss, gradients, global-norm clip, AdamW at the
         schedule's lr for this step. Returns the loss before the update."""
         self.prepare(state)
-        if state.replicas is None:
-            self.allocate_grads_(state)
-            loss = self.update(state, degraded, clean, cond, anchor, draws)
-        else:
-            loss = self._mesh_update(state, degraded, clean, cond, anchor, draws)
+        self.allocate_grads_(state)
+        loss = self.update(state, degraded, clean, cond, anchor, draws)
         state.step += 1
-        self.sync_replicas(state)
         return loss
 
     def _mesh_update(self, state: TrainState, degraded, clean, cond, anchor, draws: dict | None) -> torch.Tensor:
-        """``update`` with every data slot running its shard of the batch."""
+        """``update`` with every data slot running its shard of the batch,
+        writing only what ``allocate_grads_`` allocated; the updated
+        parameters are copied into the replicas that are copies."""
         params = trained_params(state.optimizer)
-        state.optimizer.zero_grad(set_to_none=True)
-        copies = [r for r in state.replicas if r is not state.model]
-        for replica in copies:
-            replica.zero_grad(set_to_none=True)
+        copies = state.copies
+        torch._foreach_zero_([p.grad for p in params] + [p.grad for r in copies for p in r.parameters()])
         loss = self._mesh_loss(state, degraded, clean, cond, anchor, draws)
         loss.backward()
         # the loss is the whole batch's, so each replica holds its shard's
-        # part of the gradient: the copies' parts are added to what the
-        # slots running the model itself left in it
-        grads = [gather_state(r, self.device, grads=True) for r in copies]
-        for name, p in state.model.named_parameters():
-            parts = [g[name] for g in grads] + ([] if p.grad is None else [p.grad])
-            if parts:
-                p.grad = sum(parts)
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if process_span()[0] > 1:
+        # part of the gradient: the copies' parts are summed in turn, then
+        # added to what the slots running the model itself left in it
+        if copies:
+            summed = state.exchange["grads"]
+            torch._foreach_zero_(list(summed.values()))
+            for replica in copies:
+                accumulate_grads_(replica, summed)
+            with torch.no_grad():
+                for name, p in state.model.named_parameters():
+                    p.grad.add_(summed[name])
+        if process_group_backend() is not None:
             import torch.distributed as dist
 
-            flat = torch.cat([p.grad.reshape(-1) for p in params])
+            flat = state.exchange["flat"]
+            torch.cat([p.grad.reshape(-1) for p in params], out=flat)
             dist.all_reduce(flat)
-            offset = 0
-            for p in params:
-                p.grad.copy_(flat[offset : offset + p.numel()].view_as(p))
-                offset += p.numel()
+            torch._foreach_copy_([p.grad for p in params],
+                                 [v.view_as(p) for v, p in zip(flat.split([p.numel() for p in params]), params)])
         clip_by_global_norm_([p.grad for p in params])
         state.optimizer.step()
+        self.sync_replicas(state)
         return loss.detach()
 
     @staticmethod
     def sync_replicas(state: TrainState) -> None:
-        """Copy the model's parameters into its replicas that are copies."""
-        if state.replicas is not None:
-            master = dict(state.model.named_parameters())
-            for replica in state.replicas:
-                if replica is not state.model:
-                    scatter_state_(replica, master)
+        """Copy the model's parameters into its replicas that are copies, in place."""
+        master = dict(state.model.named_parameters())
+        for replica in state.copies:
+            scatter_state_(replica, master)
 
 
 def make_train_step(cfg: TrainConfig, device: str | torch.device = "cuda"):
@@ -478,8 +496,9 @@ class Trainer:
         """``device`` defaults to "cuda", or with a ``mesh`` to its first
         slot, which holds the f32 model and the optimizer. ``eager`` runs the
         train step and the data draws eagerly on a card instead of replaying
-        their CUDA graphs, to compare the two; on the CPU and under a mesh
-        they always run eagerly."""
+        their CUDA graphs, to compare the two; on the CPU they always run
+        eagerly, and so does a mesh that a capture cannot hold
+        (``_eager_by_plan``)."""
         self.cfg = cfg
         if mesh is not None:
             if device is not None and torch.device(device).type != mesh.primary.type:
@@ -516,6 +535,7 @@ class Trainer:
         self.eager = eager
         self._exec_cache = ExecCache()
         self._graph_pool = None  # every graph's memory pool, made at the first capture
+        self._capture_streams: dict = {}
 
     # ---------------------------------------------------- executable tier
 
@@ -525,16 +545,30 @@ class Trainer:
         return self._exec_cache.compile_count
 
     def exec_stats(self) -> dict:
-        """compile_count, the executables built and the CUDA graphs captured."""
-        return {"compile_count": self.compile_count, **self._exec_cache.stats()}
+        """compile_count, the executables built and the CUDA graphs
+        captured; on a mesh also the executables a card runs eagerly by the
+        layout plan (``_eager_by_plan``)."""
+        stats = {"compile_count": self.compile_count, **self._exec_cache.stats()}
+        if self.mesh is not None:
+            stats["eager_executables"] = self._exec_cache.count("eager_by_plan")
+        return stats
+
+    def _eager_by_plan(self) -> bool:
+        """A mesh step that a card cannot hold in one CUDA graph: its data
+        and tensor slots are distinct devices (``capture_plan``), or its
+        process group is not NCCL's."""
+        if self.state.replicas is None:
+            return False
+        return capture_plan(self.mesh).grid != self.device or process_group_backend() not in (None, "nccl")
 
     def _captures(self) -> bool:
-        return self.device.type == "cuda" and not self.eager and self.state.replicas is None
+        return self.device.type == "cuda" and not self.eager and not self._eager_by_plan()
 
-    def _pool(self):
+    def _pool(self) -> tuple:
+        """(memory pool, capture stream) of every graph of this trainer."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        return self._graph_pool
+        return self._graph_pool, capture_stream(self._capture_streams, self.device)
 
     def _step_executable(self, batch):
         """The train step's executable for ``batch``'s shapes: the
@@ -547,8 +581,12 @@ class Trainer:
 
         def build():
             if self._captures():
-                return TrainGraph(self.step_fn, self.state, batch, self._pool())
-            return lambda b: self.step_fn(self.state, *b)
+                return TrainGraph(self.step_fn, self.state, batch, *self._pool())
+            by_plan = self.device.type == "cuda" and not self.eager
+            if by_plan:
+                self.logger.warning("the mesh train step runs eagerly: its slots are distinct devices "
+                                    "or its process group is not NCCL's", {"mesh": repr(self.mesh)})
+            return EagerStep(self.step_fn, self.state, eager_by_plan=by_plan)
 
         return self._exec_cache.get(exec_key("train", structural, batch), build)
 
@@ -558,7 +596,7 @@ class Trainer:
             return synthetic_batch(self._data_gen, self.cfg.batch_size, data_cfg, with_masks=True)
 
         def build():
-            return DataGraph(draw, self._data_gen, self._pool()) if self._captures() else draw
+            return DataGraph(draw, self._data_gen, *self._pool()) if self._captures() else draw
 
         key = exec_key("data", (data_cfg, self.cfg.batch_size, str(self.device)), ())
         return self._exec_cache.get(key, build)

@@ -35,7 +35,7 @@ from image_restoration_platform_tpu_torch.models.unet import UNetConfig
 from image_restoration_platform_tpu_torch.obs.metrics import get_counters
 from image_restoration_platform_tpu_torch.parallel import make_mesh
 from image_restoration_platform_tpu_torch.serve import RestorationEngine, RestoratorService
-from image_restoration_platform_tpu_torch.serve.engine import _fire_flags
+from image_restoration_platform_tpu_torch.serve.programs.restore import fire_flags as _fire_flags
 from test_torch_stages import _deblock_batch, _deblur_batch
 from torch_reference_codec import build_reference_codec
 
@@ -128,7 +128,7 @@ def _fire_flags_of(engine, canvas, valid, is_jpeg) -> np.ndarray:
     args = tuple(torch.from_numpy(pad(a)) for a in (canvas, valid, is_jpeg))
     program = engine._program(FAMILY, "rgb")
     if engine._is_multi_device():
-        flags = engine._run_data_parallel(FAMILY, program, args)[2]
+        flags = engine._mesh_executable(FAMILY, program, args, "rgb")(args)[2]
     else:
         fires: dict = {}
         program(engine.model(FAMILY), *args, fires=fires)
