@@ -110,6 +110,9 @@ failure (exit code 1):
    bit for bit over 8 steps of the r5 mix (deterministic cuDNN) in f32 and
    in bf16 with their step times, and again for 3 steps with the one-rank
    NCCL group up (the step's ``all_gather`` and ``all_reduce`` captured);
+   and the W-folded flagship (``fold_w``) at 512 b8 on data=2 x tensor=2 on
+   graphs against the single-device folded engine (the column-parallel
+   layers hold whole channel pairs, two attention launches a batch);
 8. quality and bench: the quality gates of tests/test_quality*.py
    (eval/gates.py) on the card in bf16 with the shipped weights, the
    attention kernel's count set to 0 before and read after (one launch per
@@ -134,7 +137,22 @@ failure (exit code 1):
    equal, ``compile_count`` flat; then the eager and graph engine step at
    256 b1, 512 b8 and sr_tiled 2048, timed in turns (eager, graph, graph,
    eager) with one profiled step each: kernel ms, kernels, the host's
-   kernel-launch and graph-launch calls, idle share.
+   kernel-launch and graph-launch calls, idle share;
+10. fold: the W-fold serving layout (models/folded.py, ``fold_w`` and
+   ``fold_w_sr``): a bf16 engine with both on and one with both off, on
+   graphs after ``warmup_serving``, on restore-unet 256 b1 and 512 b8 (a
+   firing and a clean batch each), diffusion-restore 256, fusion k3 at 512,
+   sr-x2 direct at 384 and tiled 2048 -> 4096: folded bytes against
+   unfolded (SR at the reference's bf16 bar, tests/test_folded.py; the UNet
+   surfaces at the bf16 bar; every surface in an f32 engine pair at the
+   reference's f32 bar), the folded run against the port's
+   unfolded CPU f32 run, attention and blend launches equal and above 0
+   where the surface launches the kernel, ``compile_count`` flat; then the
+   median of 24 steps of each engine taken in alternation and one profiled
+   step each, and the defaults those times argue for (``fold_w_sr`` stays
+   on unless the folded sr_tiled step is slower by more than the engines'
+   spread; ``fold_w`` goes on only if the folded 512 b8 step is faster by
+   more than it).
 
 Every engine and trainer replays CUDA graphs by default (the executable
 tier), so phases 3-8 run on graphs; the launch counts read the kernels' counters,
@@ -146,9 +164,9 @@ plain forward at [32, 4, 256, 64].
 
 ``--report PATH`` also writes the full report as JSON to PATH;
 ``--kernels-only`` stops after phase 2 (a quick check of a changed kernel),
-and ``--train-only``, ``--mesh-only``, ``--quality-only`` and
-``--graphs-only`` run phase 6, 7, 8 or 9 (after its own warm-up) alone after
-the builds; they print no result lines and exit 0 or 1. The last
+and ``--train-only``, ``--mesh-only``, ``--quality-only``,
+``--graphs-only`` and ``--fold-only`` run phase 6, 7, 8, 9 or 10 (after its
+own warm-up) alone after the builds; they print no result lines and exit 0 or 1. The last
 lines of standard output are the card line, the kernels JSON line, and
 {"ok": true, "device": {...}}.
 """
@@ -1600,6 +1618,7 @@ def phase_mesh(torch, np, report, card):
     from image_restoration_platform_tpu_torch.parallel import (
         make_mesh, maybe_initialize_distributed, srnet_pipeline_apply, unet_pipeline_apply,
     )
+    from image_restoration_platform_tpu_torch.parallel.sharding import ShardedConv
     from image_restoration_platform_tpu_torch.serve import MicroBatcher, RestorationEngine, RestoratorService
     from image_restoration_platform_tpu_torch.train import TrainConfig, Trainer
 
@@ -1743,10 +1762,47 @@ def phase_mesh(torch, np, report, card):
         torch.cuda.empty_cache()
         part_done(f"restore_{name}")
 
+    # --- the W-fold on data=2 x tensor=2: the folded flagship column-parallel
+    # (each slot whole channel pairs, the phase kernels replicated) on graphs
+    # against the single-device folded engine, at the reference's mesh bars
+    fold_cfg = dataclasses.replace(cfg, fold_w=True)
+    single_fold = RestorationEngine(device="cuda", dtype=torch.bfloat16, serving_config=fold_cfg,
+                                    param_cache=single.params_cache)
+    ref_fold, ref_fold_scores, _ = single_fold.restore_batch(canvas8, is_jpeg=is_jpeg8)
+    fold_mesh = RestorationEngine(dtype=torch.bfloat16, serving_config=fold_cfg, param_cache=single.params_cache,
+                                  mesh=make_mesh(slots, data=2, tensor=2))
+    t = time.perf_counter()
+    fold_mesh.warmup_serving(families=("restore-unet",), sizes=(512,), batches=(8,))
+    warm = {"s": time.perf_counter() - t, **fold_mesh.exec_stats()}
+    builds = fold_mesh.compile_count
+    _zero_launches(flash_kernel)
+    got_out, got_scores, _ = fold_mesh.restore_batch(canvas8, is_jpeg=is_jpeg8)
+    n = _read_launches("flash_attention", flash_kernel)
+    replicas = fold_mesh._data_replicas("restore-unet")
+    split = [w.shape[0] for m in replicas[0].modules() if isinstance(m, ShardedConv) for w in m.w]
+    cmp = {**_levels(np, got_out, ref_fold), "scores_max_abs": float(np.abs(got_scores - ref_fold_scores).max()),
+           "attention_launches": n, "warmup": warm, "sharded_conv_slices": len(split),
+           "odd_slices": sum(c % 2 for c in split), "compile_count": (builds, fold_mesh.compile_count)}
+    print(json.dumps({"mesh_restore_folded_data2_tensor2": cmp}), flush=True)
+    check(all(getattr(r, "folded", False) for r in replicas) and split and not cmp["odd_slices"],
+          f"mesh folded: the replicas' layout {cmp}")
+    check(warm["graphs"] > 0 and warm["eager_executables"] == 0, f"mesh folded: warm-up {warm}")
+    check(n == 2, f"mesh folded: {n} attention launches, expected one a data row")
+    check(cmp["mean_levels"] < MESH_MEAN_LEVELS and cmp["scores_max_abs"] <= MESH_SCORES_ATOL,
+          f"mesh folded against the single-device folded engine: {cmp}")
+    check(fold_mesh.compile_count == builds, f"mesh folded: a warmed surface was built in a request: {cmp}")
+    out["restore_folded_data2_tensor2"] = cmp
+    launches["flash_attention"]["mesh_restore_folded"] = n
+    del single_fold, fold_mesh, replicas
+    torch.cuda.empty_cache()
+    part_done("restore_folded")
+
     # --- sr-x2 2048 -> 4096 with the tiles split over data=4: equal, one blend
     canvas2048 = _photo_large(np, 11, 2048, 2048)
     ref_sr, _ = single.sr_tiled(canvas2048, "sr-x2")
     tiled, tiled_eager, warm = mesh_engines(("sr-x2",), data=4)
+    check(all(getattr(r, "folded", False) == cfg.fold_w_sr for r in tiled._data_replicas("sr-x2")),
+          "the mesh sr_tiled replicas are not in the layout fold_w_sr asks for")
     builds = tiled.compile_count
     _zero_launches(blend_kernel)
     got_sr, _ = tiled.sr_tiled(canvas2048, "sr-x2")
@@ -1774,7 +1830,7 @@ def phase_mesh(torch, np, report, card):
     spatial, spatial_eager, warm = mesh_engines(("sr-x2",), spatial=4)
     builds = spatial.compile_count
     out["sr_spatial_warmup"] = warm
-    model = single.model("sr-x2")
+    model = single.model("sr-x2", folded=False)  # the row-sharded program's layout
     for name, canvas in (("2048", canvas2048), (f"{SPATIAL_ROWS}x1100", _photo_large(np, 12, SPATIAL_ROWS, 1100))):
         got, meta = spatial.sr_spatial(canvas, "sr-x2")
         pad = (-canvas.shape[0]) % 4
@@ -1808,7 +1864,7 @@ def phase_mesh(torch, np, report, card):
         ref = model(x)
         got = srnet_pipeline_apply(model, x, make_mesh(slots, pipe=4), n_micro=4)
         sr_err = float((got - ref).abs().max())
-        unet = single.model("restore-unet")
+        unet = single.model("restore-unet", folded=False)  # the pipeline splits the unfolded UNet
         cond = torch.rand((8, 28), generator=torch.Generator().manual_seed(7)).cuda().to(torch.bfloat16)
         ref = unet(x, cond)
         _zero_launches(flash_kernel)
@@ -2429,6 +2485,237 @@ def phase_sr_throughput(torch, np, report, svc, engine, sr_reqs, card):
     report["sr_throughput"] = out
 
 
+# the fold phase: the W-fold serving layout (models/folded.py) against the
+# unfolded programs, both on CUDA graphs after their own warm-up. The bars on
+# bytes are the reference's (tests/test_folded.py): SR in bf16 at most 2
+# levels, under 1 % of the pixels above 1 and 25 % above 0; the transform
+# itself in an f32 pair, at most 1 level on under 2 % of the pixels (SR:
+# 25 %). The surfaces that run the full-width UNet (restore, diffusion,
+# fusion) are held in bf16 to the bf16 bar above, as the card against the
+# CPU is: in bf16 a rare pixel of the flagship's output moves by up to ~30
+# levels under any change of summation order (folded or not, another batch
+# size), so the reference's bf16 fusion bar (2 levels, set on
+# restore-unet-small at 32 px and held there by tests/test_torch_folded.py)
+# does not hold at full width: 6 levels on 0.03 % of the pixels, 1 in f32
+FOLD_STEPS = 24  # timed calls of each engine a surface, the two in alternation
+FOLD_SIZES = {"small": 256, "large": 512, "sr_direct": 384, "sr_tiled": 2048}
+FOLD_BF16_BAR = (2, 0.01, 0.25)  # max levels, share above 1, share above 0
+FOLD_F32_BAR = (1, 0.02)  # max levels, share above 0
+# the surfaces also run on the CPU (the tiled 2048 canvas and the sampler's
+# noise, drawn on the card, are left out there)
+FOLD_CPU_SURFACES = ("restore/small/fire", "restore/small/clean", "restore/large/fire", "fusion/large",
+                     "sr-x2/direct")
+
+
+def _fold_levels(np, a, b) -> dict:
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return {"mean_levels": float(d.mean()), "max_levels": int(d.max()),
+            "p99.9_levels": float(np.percentile(d, 99.9)), "above0": float((d > 0).mean()),
+            "above1": float((d > 1).mean())}
+
+
+def _fold_surfaces(np, imageio, motion_psf) -> dict:
+    """{surface: (run(engine), kind, the hand kernel it launches)} at
+    FOLD_SIZES: restore at the small size b1 and the large b8, each on a
+    firing and a clean batch; diffusion at the small size; fusion k3 at the
+    large; sr-x2 direct and tiled (2048 -> 4096)."""
+    small, large = FOLD_SIZES["small"], FOLD_SIZES["large"]
+    u8 = lambda x: np.clip(np.round(x * 255.0), 0, 255).astype(np.uint8)  # noqa: E731
+    b_small = _graph_batches(np, _graph_inputs(np, imageio, motion_psf, small), 1)
+    i_large = _graph_inputs(np, imageio, motion_psf, large)
+    b_large = _graph_batches(np, i_large, 8)
+    triple = np.stack([i_large[n] for n in ("clean", "jpeg", "blur")])
+    valid3, jpeg3 = np.tile([[large, large]], (3, 1)).astype(np.int32), np.asarray([0, 1, 0], np.float32)
+    direct = u8(_photo(np, 5, FOLD_SIZES["sr_direct"]))[None]
+    tiled = _photo_large(np, 11, FOLD_SIZES["sr_tiled"], FOLD_SIZES["sr_tiled"])
+
+    def restore(batch):
+        return lambda e: e.restore_batch(batch[0], is_jpeg=batch[1])
+
+    def diffusion(e):
+        e._generator.manual_seed(small)  # both engines draw the same noise
+        return e.restore_batch(b_small["clean"][0], is_jpeg=b_small["clean"][1], family_name="diffusion-restore")
+
+    return {
+        "restore/small/fire": (restore(b_small["fire_jpeg"]), "restore", "flash_attention"),
+        "restore/small/clean": (restore(b_small["clean"]), "restore", "flash_attention"),
+        "restore/large/fire": (restore(b_large["fire"]), "restore", "flash_attention"),
+        "restore/large/clean": (restore(b_large["clean"]), "restore", "flash_attention"),
+        "diffusion/small": (diffusion, "restore", "flash_attention"),
+        "fusion/large": (lambda e: e.fuse_batch(triple, valid3, jpeg3), "fusion", "flash_attention"),
+        "sr-x2/direct": (lambda e: e.sr_batch(direct, "sr-x2"), "sr", None),
+        "sr-x2/tiled": (lambda e: e.sr_tiled(tiled, "sr-x2"), "sr", "blend_tiles"),
+    }
+
+
+def _fold_warmup(engine) -> dict:
+    """``warmup_serving`` of every surface the fold phase drives."""
+    t = time.perf_counter()
+    engine.warmup_serving(families=("restore-unet",), sizes=(FOLD_SIZES["small"], FOLD_SIZES["large"]),
+                          batches=(1, 8))
+    engine.warmup_serving(families=("diffusion-restore",), sizes=(FOLD_SIZES["small"],), batches=(1,))
+    engine.warmup_serving(families=("fusion",), sizes=(FOLD_SIZES["large"],))
+    engine.warmup_serving(families=("sr-x2",), sizes=(FOLD_SIZES["sr_direct"],), sr_tiled_canvas=FOLD_SIZES["sr_tiled"])
+    return {"s": time.perf_counter() - t, **engine.exec_stats()}
+
+
+def phase_fold(torch, np, report, card):
+    """The W-fold on the card (FOLD_SIZES): one bf16 engine with ``fold_w`` and
+    ``fold_w_sr`` on and one with both off, shipped weights, full width and
+    depth, both on CUDA graphs after ``warmup_serving``; on every surface of
+    ``_fold_surfaces`` the folded bytes against the unfolded ones at the
+    reference's bars, the attention and blend launches equal (and above 0
+    where the surface launches the kernel), ``compile_count`` flat; the folded
+    run against the port's unfolded CPU f32 run; an f32 engine pair (eager)
+    on the restore and diffusion surfaces; then step times, the median of
+    ``FOLD_STEPS`` calls of each engine taken in alternation, and one
+    profiled step of each; and the defaults the card's times argue for."""
+    from image_restoration_platform_tpu_torch import imageio
+    from image_restoration_platform_tpu_torch.config import ServingConfig
+    from image_restoration_platform_tpu_torch.models.folded import FoldedSRNet, FoldedUNet
+    from image_restoration_platform_tpu_torch.ops.cuda.attention import flash_kernel
+    from image_restoration_platform_tpu_torch.ops.cuda.blend import blend_kernel
+    from image_restoration_platform_tpu_torch.ops.deblur import motion_psf
+    from image_restoration_platform_tpu_torch.serve import RestorationEngine
+
+    t_phase = time.perf_counter()
+    fails: list = []  # every bar is read before the phase fails, so one run shows them all
+
+    def hold(cond: bool, message: str) -> None:
+        if not cond:
+            fails.append(message)
+            print(f"fold phase: FAILED: {message}", flush=True)
+
+    base = ServingConfig(size_buckets=(FOLD_SIZES["small"], FOLD_SIZES["large"]), max_batch=8)
+    cfgs = {"folded": dataclasses.replace(base, fold_w=True, fold_w_sr=True),
+            "unfolded": dataclasses.replace(base, fold_w=False, fold_w_sr=False)}
+    engines: dict = {}
+    for name, cfg in cfgs.items():
+        cache = engines["folded"].params_cache if engines else None
+        engines[name] = RestorationEngine(device="cuda", dtype=torch.bfloat16, serving_config=cfg, param_cache=cache)
+    out: dict = {"card": card, "warmup": {name: _fold_warmup(e) for name, e in engines.items()}, "surfaces": {}}
+    builds = {name: e.compile_count for name, e in engines.items()}
+    folded_models = {f: engines["folded"].model(f) for f in ("restore-unet", "diffusion-restore", "sr-x2")}
+    check(isinstance(folded_models["restore-unet"], FoldedUNet) and isinstance(folded_models["sr-x2"], FoldedSRNet)
+          and isinstance(folded_models["diffusion-restore"], FoldedUNet),
+          f"the folded engine's models: {[type(m).__name__ for m in folded_models.values()]}")
+    check(not any(getattr(engines["unfolded"].model(f), "folded", False) for f in folded_models),
+          "the unfolded engine serves a folded model")
+    keys = {name: [k for k in e._exec_cache._built if ("fold_w", True) in k] for name, e in engines.items()}
+    check(len(keys["folded"]) == builds["folded"] and not keys["unfolded"],
+          f"executable keys and the fold: {len(keys['folded'])} folded keys of {builds['folded']}; "
+          f"{len(keys['unfolded'])} in the unfolded engine")
+    print(json.dumps({"fold_warmup": out["warmup"]}), flush=True)
+
+    surfaces = _fold_surfaces(np, imageio, motion_psf)
+    launches = {"flash_attention": 0, "blend_tiles": 0}
+    results: dict = {}
+    for surface, (run, kind, kernel) in surfaces.items():
+        got, n = {}, {}
+        for name, engine in engines.items():
+            _zero_launches(flash_kernel)
+            _zero_launches(blend_kernel)
+            got[name] = _arrays(run(engine))
+            n[name] = (_read_launches("flash_attention", flash_kernel), _read_launches("blend_tiles", blend_kernel))
+        results[surface] = got["folded"]
+        u8 = [i for i, a in enumerate(got["folded"]) if a.dtype == np.uint8]
+        levels = [_fold_levels(np, got["folded"][i], got["unfolded"][i]) for i in u8]
+        scores = [float(np.abs(got["folded"][i] - got["unfolded"][i]).max()) for i in range(len(got["folded"]))
+                  if i not in u8]
+        row = {"kind": kind, "levels": levels, "scores_max_abs": max(scores, default=0.0),
+               "launches": n, "kernel": kernel}
+        launches["flash_attention"] += n["folded"][0]
+        launches["blend_tiles"] += n["folded"][1]
+        out["surfaces"][surface] = row
+        print(json.dumps({"fold_bytes": {surface: row}}), flush=True)
+        hold(n["folded"] == n["unfolded"], f"fold {surface}: launches {n}")
+        for k, index in (("flash_attention", 0), ("blend_tiles", 1)):
+            hold((n["folded"][index] > 0) == (kernel == k), f"fold {surface}: {k} launches {n['folded'][index]}")
+        hold(row["scores_max_abs"] <= CPU_SCORES_ATOL, f"fold {surface}: scores {row}")
+        for lv in levels:
+            if kind == "sr":
+                hold(lv["max_levels"] <= FOLD_BF16_BAR[0] and lv["above1"] < FOLD_BF16_BAR[1]
+                     and lv["above0"] < FOLD_BF16_BAR[2], f"fold {surface} against unfolded: {row}")
+            else:  # the full-width UNet in bf16: the bf16 bar; the f32 pair below holds the transform
+                hold(lv["mean_levels"] <= CPU_MEAN_LEVELS and lv["p99.9_levels"] <= CPU_P999_LEVELS,
+                     f"fold {surface} against unfolded: {row}")
+
+    # --- the folded card run against the port's unfolded CPU f32 run
+    cpu = RestorationEngine(device="cpu", dtype=torch.float32, serving_config=cfgs["unfolded"],
+                            param_cache=engines["folded"].params_cache)
+    out["card_folded_vs_cpu_f32"] = {}
+    for surface in FOLD_CPU_SURFACES:
+        want = _arrays(surfaces[surface][0](cpu))
+        cmp = [_fold_levels(np, a, b) for a, b in zip(results[surface], want) if a.dtype == np.uint8]
+        out["card_folded_vs_cpu_f32"][surface] = cmp
+        for lv in cmp:
+            hold(lv["mean_levels"] <= CPU_MEAN_LEVELS and lv["p99.9_levels"] <= CPU_P999_LEVELS,
+                 f"fold {surface}: the folded card run against the CPU's f32 {cmp}")
+    del cpu
+    print(json.dumps({"fold_card_vs_cpu_f32": out["card_folded_vs_cpu_f32"]}), flush=True)
+
+    # --- an f32 engine pair on every surface: the transform itself, at the
+    # reference's f32 bars (SR: under 25 % of the pixels above 0)
+    f32 = {name: RestorationEngine(device="cuda", dtype=torch.float32, serving_config=cfg, eager=True,
+                                   param_cache=engines["folded"].params_cache) for name, cfg in cfgs.items()}
+    out["f32"] = {}
+    for surface, (run, kind, _) in surfaces.items():
+        a, b = (_arrays(run(f32[name]))[0] for name in ("folded", "unfolded"))
+        lv = _fold_levels(np, a, b)
+        out["f32"][surface] = lv
+        hold(lv["max_levels"] <= FOLD_F32_BAR[0] and lv["above0"] < (0.25 if kind == "sr" else FOLD_F32_BAR[1]),
+             f"fold {surface} in f32 against unfolded: {lv}")
+    del f32
+    torch.cuda.empty_cache()
+    print(json.dumps({"fold_f32": out["f32"]}), flush=True)
+
+    # --- step times in alternation, then one profiled step of each
+    out["steps"] = {}
+    skip = ("restore/", "fuse/", "sr/", "sr_tiled/")
+    for surface, (run, _, _) in surfaces.items():
+        times: dict = {"folded": [], "unfolded": []}
+        for i in range(FOLD_STEPS):
+            for name in (("folded", "unfolded") if i % 2 == 0 else ("unfolded", "folded")):
+                t = time.perf_counter()
+                run(engines[name])
+                times[name].append(1e3 * (time.perf_counter() - t))
+        row = {}
+        for name, ts in times.items():
+            q = statistics.quantiles(ts, n=4)
+            step = statistics.median(ts)
+            row[name] = {"step_ms": step, "iqr_ms": q[2] - q[0],
+                         **_step_profile(torch, lambda e=engines[name]: run(e), step, skip=skip)}
+        row["folded_over_unfolded"] = row["folded"]["step_ms"] / row["unfolded"]["step_ms"]
+        out["steps"][surface] = row
+        print(json.dumps({"fold_steps": {surface: row}}), flush=True)
+
+    def verdict(surface: str) -> dict:
+        r = out["steps"][surface]
+        spread = max(r["folded"]["iqr_ms"], r["unfolded"]["iqr_ms"])
+        delta = r["folded"]["step_ms"] - r["unfolded"]["step_ms"]
+        return {"folded_ms": r["folded"]["step_ms"], "unfolded_ms": r["unfolded"]["step_ms"],
+                "spread_ms": spread, "folded_minus_unfolded_ms": delta,
+                "slower_beyond_spread": delta > spread, "faster_beyond_spread": -delta > spread}
+
+    out["defaults"] = {"fold_w_sr": {**verdict("sr-x2/tiled"), "config": ServingConfig().fold_w_sr},
+                       "fold_w": {**verdict("restore/large/clean"), "config": ServingConfig().fold_w}}
+    out["defaults"]["fold_w_sr"]["card_says"] = not out["defaults"]["fold_w_sr"]["slower_beyond_spread"]
+    out["defaults"]["fold_w"]["card_says"] = out["defaults"]["fold_w"]["faster_beyond_spread"]
+    print(json.dumps({"fold_defaults": out["defaults"]}), flush=True)
+
+    out["compile_count"] = {name: (builds[name], e.compile_count) for name, e in engines.items()}
+    for name, (before, after) in out["compile_count"].items():
+        hold(before == after, f"fold phase: the {name} engine built {after - before} executables after its warm-up")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"fold_phase": {k: out[k] for k in ("seconds", "launches", "compile_count")}}), flush=True)
+    report["fold"] = {**out, "failed": fails}
+    del engines
+    torch.cuda.empty_cache()
+    check(not fails, f"fold phase: {len(fails)} bars failed: {fails}")
+    return {"flash_attention": {"fold": launches["flash_attention"]}, "blend_tiles": {"fold": launches["blend_tiles"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one NVIDIA card.")
     parser.add_argument("--report", help="also write the full report as JSON to this path")
@@ -2443,6 +2730,8 @@ def main() -> int:
                              "prints no result lines")
     parser.add_argument("--train-only", action="store_true",
                         help="build the kernels and run the training phase (6) alone; prints no result lines")
+    parser.add_argument("--fold-only", action="store_true",
+                        help="build the kernels and run the W-fold phase (10) alone; prints no result lines")
     args = parser.parse_args()
     try:
         import torch
@@ -2494,6 +2783,14 @@ def main() -> int:
         phase_quality_bench(torch, np, report, card)
         print(f"quality only: {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    if args.fold_only:
+        phase_fold(torch, np, report, card)
+        if args.report:
+            os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        print(f"fold only: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     if args.train_only:
         phase_train(torch, np, report, card)
         if args.report:
@@ -2531,6 +2828,10 @@ def main() -> int:
     for name, by_path in phase_quality_bench(torch, np, report, card).items():
         launches[name].update(by_path)
     for name, by_path in phase_graphs(torch, np, report, card, engine).items():
+        launches[name].update(by_path)
+    del engine  # phase 3's graphs and their pool
+    torch.cuda.empty_cache()
+    for name, by_path in phase_fold(torch, np, report, card).items():
         launches[name].update(by_path)
 
     main_row = next(r for r in rows if r["shape"] == [8, 4, 4096, 64])

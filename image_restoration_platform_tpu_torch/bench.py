@@ -77,19 +77,23 @@ def _device_seconds(device: torch.device, work) -> float:
 
 def model_flops(engine, canvas, valid, is_jpeg) -> tuple[float, float]:
     """(FLOPs of one canonical restore step on these inputs, of which the
-    attention kernel's). Canonical: the restore program with the deblock and
-    deblur stages off, as the reference counts model FLOPs."""
+    attention kernel's). Canonical: the unfolded restore program with the
+    deblock and deblur stages off, as the reference counts model FLOPs, so
+    a W-folded engine's ``mfu`` does not count its kernels' zero halves."""
+    import dataclasses
+
     from torch.utils.flop_counter import FlopCounterMode
 
     from .models.registry import attention_shapes
     from .ops.cuda.attention import flash_kernel
+    from .serve.engine import uses_s2d_io
     from .serve.programs import build_restore_program
 
     program = build_restore_program(
-        FAMILY, dtype=engine.dtype, use_s2d_io=engine._uses_s2d_io(FAMILY),
+        FAMILY, dtype=engine.dtype, use_s2d_io=uses_s2d_io(FAMILY, dataclasses.replace(engine.config, fold_w=False)),
         use_deblur=False, use_deblock=False,
     )
-    model = engine.model(FAMILY)
+    model = engine.model(FAMILY, folded=False)
     before = flash_kernel.launches
     with FlopCounterMode(display=False) as counter:
         program(model, canvas, valid, is_jpeg)

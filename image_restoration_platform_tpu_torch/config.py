@@ -3,11 +3,18 @@
 The port's copy of image_restoration_platform_tpu/config.py: the boot-time
 secrets gate (``assert_required_secrets``), the rate-limit, upload, credits
 and queue configs, ``ServingConfig`` and ``Config`` / ``load_config``; same
-environment variables, same defaults.
+environment variables, same defaults but the W-fold's (below).
 
-Not ported: ``SERVE_FOLD_W`` / ``SERVE_FOLD_W_SR``. The W-fold
-(models/folded.py in the JAX package) is a TPU lane-fill reparameterization
-of the same function; it has no counterpart here.
+``SERVE_FOLD_W`` / ``SERVE_FOLD_W_SR`` choose the W-fold serving layout
+(models/folded.py) as in the reference: the same function with width pairs
+folded into channels, so every convolution runs at twice the channels and
+half the width on a half-zero kernel. Their defaults are the card's, not the
+reference's (on for the restore UNets, off for SR: the reference has the
+opposite), from ``chip_smoke.py``'s fold phase on an NVIDIA H100 80GB HBM3 at
+700.00 W, graph steps, median of 24 each taken in alternation: the folded
+restore-unet 512 b8 step 29.88 ms against 31.92 unfolded (interquartile
+spreads 0.59 and 0.35 ms), the folded sr_tiled 2048 step 99.60 ms against
+94.64 (spreads 2.17 and 2.39 ms).
 
 ``DEVICE_COST_PER_HOUR_USD`` is the port's own: the price of one card-hour
 that ``estimatedCostUsd`` and the ``tpu_cost_usd`` counter are computed at
@@ -138,6 +145,19 @@ class ServingConfig:
     pipeline_depth: int = field(default_factory=lambda: max(1, _env_int("SERVE_PIPELINE_DEPTH", 2)))
     # a queue whose oldest request waited longer than this is dispatched next
     fairness_age_ms: float = field(default_factory=lambda: _env_float("SERVE_FAIRNESS_AGE_MS", 50.0))
+    # serve the restore UNet families (restore-unet, restore-unet-small,
+    # diffusion-restore) in the W-folded layout (models/folded.py): the same
+    # function, every convolution at twice the channels and half the width,
+    # the decoder's upsample inside its convolutions. It turns space-to-depth
+    # IO off for the families it folds. On by default: on the card the folded
+    # 512 b8 step is 6 % faster (fewer copies and elementwise passes than the
+    # unfolded decoder's upsample; see the module docstring)
+    fold_w: bool = field(default_factory=lambda: _env_int("SERVE_FOLD_W", 1) == 1)
+    # the W-fold for the SR families (sr_batch, sr_tiled, the mesh sr_tiled;
+    # never sr_spatial, whose halo exchange is defined on unfolded weights).
+    # Off by default: on the card the folded sr_tiled 2048 step is 5 % slower
+    # (its convolutions do twice the multiply-adds; nothing else shrinks)
+    fold_w_sr: bool = field(default_factory=lambda: _env_int("SERVE_FOLD_W_SR", 0) == 1)
     # gated spectral Wiener deblur stage (ops/deblur.py)
     deblur: bool = field(default_factory=lambda: _env_int("SERVE_DEBLUR", 1) == 1)
     # gated JPEG deblocking stage (ops/deblock.py)

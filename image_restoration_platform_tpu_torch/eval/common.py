@@ -24,6 +24,7 @@ from ..classify.fused import batch_classify_and_condition
 from ..config import ServingConfig
 from ..models import get_family
 from ..models import weights as W
+from ..models.folded import is_folded
 from ..models.nn import cast_for_compute
 from ..serve.engine import resolve_device, uses_s2d_io
 from ..serve.programs import build_restore_program
@@ -112,7 +113,8 @@ def model_device(model: torch.nn.Module) -> torch.device:
 
 def serving_forward(family, model, degraded_f32, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The engine's own restore program (serve/programs/restore.py, with the
-    deblock and deblur stages and the default engine's space-to-depth IO) on
+    deblock and deblur stages and the default engine's space-to-depth IO, or
+    none for a W-folded ``model``) on
     [N, S, S, 3] f32 inputs in [0, 1] rounded to a u8 canvas: classify ->
     deblock -> spectral deblur -> re-condition -> backbone in ``dtype``. It
     reads the program's ``f32`` egress, the output clipped to [0, 1] before
@@ -121,7 +123,9 @@ def serving_forward(family, model, degraded_f32, dtype: torch.dtype = torch.bflo
     name = getattr(family, "name", family)
     if name.startswith("sr-") or name == "diffusion-restore":
         raise ValueError(f"serving_forward runs the restore UNet families, not {name}")
-    program = build_restore_program(name, dtype=dtype, use_s2d_io=uses_s2d_io(name, ServingConfig()),
+    folded = is_folded(model)
+    program = build_restore_program(name, dtype=dtype, use_folded=folded,
+                                    use_s2d_io=not folded and uses_s2d_io(name, ServingConfig()),
                                     use_deblur=True, use_deblock=True, egress="f32")
     device = model_device(model)
     x = tensor(degraded_f32, device)

@@ -225,6 +225,14 @@ class Conv(nn.Module):
     def cat(self, parts: list[torch.Tensor], stride: int = 1) -> torch.Tensor:
         return conv2d_cat(parts, self.w, self.b, stride)
 
+    def part(self, x: torch.Tensor, start: int) -> torch.Tensor:
+        """The stride-1 SAME conv of ``x`` with the kernel's input channels
+        from ``start`` on, without the bias: one part of ``cat``."""
+        return _conv_nchw(x, self.w[:, start:], 1)
+
+    def add_bias(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.b.to(x.dtype)
+
     def init_(self, gen: torch.Generator, scale: float = 1.0) -> None:
         co, ci, kh, kw = self.w.shape
         std = scale * math.sqrt(2.0 / (ci * kh * kw))
@@ -295,4 +303,6 @@ def cast_for_compute(module: nn.Module, dtype: torch.dtype, channels_last: bool 
                 m.b.data = m.b.data.to(dtype)
                 if channels_last and isinstance(m, Conv):
                     m.w.data = m.w.data.contiguous(memory_format=torch.channels_last)
+        for p in getattr(m, "compute_params", lambda: ())():
+            p.data = p.data.to(dtype)  # other kernels a module applies in the compute type
     return module

@@ -56,6 +56,11 @@ _FAMILIES: dict[str, ModelFamily] = {
 }
 
 
+def register(family: ModelFamily) -> None:
+    """Add ``family`` to the registry, or replace the family of its name."""
+    _FAMILIES[family.name] = family
+
+
 def get_family(name: str) -> ModelFamily:
     if name not in _FAMILIES:
         raise KeyError(f"unknown model family: {name}; have {sorted(_FAMILIES)}")
@@ -136,3 +141,9 @@ class ParamCache:
                     state = family.build().init_(gen).state_dict()
                 self._params[family_name] = state
             return self._params[family_name]
+
+    def put(self, family_name: str, state: dict[str, torch.Tensor]) -> None:
+        """Serve ``state`` (a state dict of the family's module) for
+        ``family_name`` from now on, in place of its weights file."""
+        with self._lock:
+            self._params[family_name] = state

@@ -43,6 +43,21 @@ class UNetConfig:
     residual_shrink: float = 0.0
 
 
+def embedding(model: nn.Module, x: torch.Tensor, cond: torch.Tensor, t: torch.Tensor | None) -> torch.Tensor:
+    """The conditioning embedding [N, emb_dim] of ``model`` (a UNet with
+    ``cond_mlp1`` and ``cond_mlp2``) in x's type: the MLP of cond, and of
+    the timestep's sinusoidal embedding for a time-conditioned config (t
+    None means zeros)."""
+    c = model.config
+    emb_in = cond.to(x.dtype)
+    if c.time_conditioned:
+        if t is None:
+            t = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+        # the embedding is f32 and meets the compute type only here
+        emb_in = torch.cat([emb_in, L.sinusoidal_embedding(t, c.emb_dim).to(x.dtype)], dim=-1)
+    return model.cond_mlp2(L.silu(model.cond_mlp1(emb_in)))
+
+
 class ResBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int):
         super().__init__()
@@ -159,13 +174,7 @@ class RestorationUNet(nn.Module):
         models only; None means zeros) -> restored, in x's layout and type."""
         c = self.config
         dtype = x.dtype
-        emb_in = cond.to(dtype)
-        if c.time_conditioned:
-            if t is None:
-                t = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
-            # the embedding is f32 and meets the compute type only here
-            emb_in = torch.cat([emb_in, L.sinusoidal_embedding(t, c.emb_dim).to(dtype)], dim=-1)
-        emb = self.cond_mlp2(L.silu(self.cond_mlp1(emb_in)))
+        emb = embedding(self, x, cond, t)
 
         if s2d_io:
             if c.input_scale <= 1 or c.in_channels != c.out_channels:

@@ -5,7 +5,9 @@ Serving checkpoints are one npz per family with '/'-joined parameter paths
 fp16 and biases/norms f32; everything loads as f32. The JAX layouts map onto
 the port's modules as:
 
-- conv kernels HWIO ``[kh, kw, ci, co]`` -> OIHW ``[co, ci, kh, kw]``;
+- conv kernels HWIO ``[kh, kw, ci, co]`` -> OIHW ``[co, ci, kh, kw]``, and
+  the last four axes of a stack of them alike (the W-fold's phase kernels
+  ``[2, 2, kh, kw, ci, co]``, models/folded.py);
 - dense kernels ``[in, out]`` stay ``[in, out]`` (applied as ``x @ w``);
 - '/' in a path -> '.' in the state-dict key.
 
@@ -42,8 +44,9 @@ def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     state = {}
     for key, value in flat.items():
         arr = np.array(value, dtype=np.float32)
-        if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
+        if arr.ndim >= 4:
+            lead = tuple(range(arr.ndim - 4))
+            arr = arr.transpose(*lead, *(len(lead) + i for i in (3, 2, 0, 1)))
         state[key.replace("/", ".")] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
 
@@ -54,8 +57,9 @@ def params_to_jax(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     flat = {}
     for key, value in state.items():
         arr = value.detach().to("cpu", torch.float32).numpy()
-        if arr.ndim == 4:
-            arr = arr.transpose(2, 3, 1, 0)
+        if arr.ndim >= 4:
+            lead = tuple(range(arr.ndim - 4))
+            arr = arr.transpose(*lead, *(len(lead) + i for i in (2, 3, 1, 0)))
         flat[key.replace(".", "/")] = np.ascontiguousarray(arr)
     return flat
 

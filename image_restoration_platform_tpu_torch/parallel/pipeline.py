@@ -66,12 +66,20 @@ def _gpipe(stage_fns, slots: list, payloads: list) -> list:
     return done
 
 
+def _refuse_folded(model) -> None:
+    """The pipelines split the unfolded networks' forwards; a W-folded
+    model (models/folded.py) has another forward."""
+    if getattr(model, "folded", False):
+        raise ValueError("the pipelines take the unfolded network: engine.model(family, folded=False)")
+
+
 def srnet_pipeline_apply(model, x: torch.Tensor, mesh: Mesh, n_micro: int = 4) -> torch.Tensor:
     """SRNet forward with the residual-block chain pipelined over ``pipe``.
 
     x: [N, H, W, 3] in [0, 1] on the mesh's first slot; N must divide by
     n_micro and the block count by the pipe size. The same operations in
     the same order as ``SRNet.forward``; only their placement differs."""
+    _refuse_folded(model)
     c = model.config
     slots = mesh.slots(AXIS_PIPE)
     pipe = len(slots)
@@ -163,6 +171,7 @@ def unet_pipeline_apply(
     [N, cond_dim] on the mesh's first slot; N must divide by n_micro and the
     microbatch by the data size. Same operations in the same order as
     ``RestorationUNet.forward``."""
+    _refuse_folded(model)
     c = model.config
     dp, pipe = mesh.shape[AXIS_DATA], mesh.shape[AXIS_PIPE]
     n = x.shape[0]

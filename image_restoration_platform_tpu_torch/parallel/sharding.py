@@ -14,7 +14,10 @@ layouts are explicit modules and copies:
   each slot computes its slice of the output channels and the slices are
   gathered back on the layer's first slot, so GroupNorm and attention see
   whole activations, as under GSPMD;
-- everything else (GroupNorm, small layers) is replicated.
+- everything else (GroupNorm, small layers, the W-fold's phase kernels) is
+  replicated. A W-folded model's output channels come in interleaved pairs
+  (2c, 2c+1: models/folded.py), so its layers split only where each slot
+  gets whole pairs.
 """
 
 from __future__ import annotations
@@ -101,6 +104,14 @@ class ShardedConv(_ColumnParallel):
     def cat(self, parts: list[torch.Tensor], stride: int = 1) -> torch.Tensor:
         return self._gather(lambda w, b, d: L.conv2d_cat([p.to(d) for p in parts], w, b, stride))
 
+    def part(self, x: torch.Tensor, start: int) -> torch.Tensor:
+        """``L.Conv.part`` over the slots: each its output channels."""
+        parts = [L._conv_nchw(x.to(d), w[:, start:], 1) for w, d in zip(self.w, self.devices)]
+        return gather(parts, self.devices[0], dim=-1)
+
+    def add_bias(self, x: torch.Tensor) -> torch.Tensor:
+        return x + gather(list(self.b), self.devices[0]).to(x.dtype)
+
 
 class ShardedDense(_ColumnParallel):
     out_dim = 1  # [in, out]
@@ -114,9 +125,10 @@ class ShardedFilm(ShardedDense):
         return L.film_modulate(x, ShardedDense.forward(self, cond.to(x.dtype)))
 
 
-def _sharded_type(module: nn.Module, tensor_size: int):
+def _sharded_type(module: nn.Module, tensor_size: int, unit: int = 1):
     """The column-parallel counterpart of ``module``, or None where the
-    reference's ``_leaf_spec`` keeps the leaf replicated."""
+    reference's ``_leaf_spec`` keeps the leaf replicated or a slot would not
+    get whole groups of ``unit`` output channels."""
     if isinstance(module, L.Conv):
         kind, out = ShardedConv, module.w.shape[0]
     elif isinstance(module, L.Film):
@@ -125,20 +137,22 @@ def _sharded_type(module: nn.Module, tensor_size: int):
         kind, out = ShardedDense, module.w.shape[1]
     else:
         return None
-    return kind if out >= MIN_SHARDED_OUT and out % tensor_size == 0 else None
+    return kind if out >= MIN_SHARDED_OUT and out % (tensor_size * unit) == 0 else None
 
 
 def shard_params(model: nn.Module, mesh: Mesh, data_index: int = 0) -> nn.Module:
     """``model`` laid out over the tensor slots of one data row: a copy
     whose eligible conv and dense layers are column-parallel over those
-    slots, everything else on the row's first slot. A tensor axis of 1 is
-    the model on that slot (a no-op layout, as in the reference)."""
+    slots, everything else on the row's first slot (a W-folded model's
+    layers only where each slot gets whole channel pairs). A tensor axis of
+    1 is the model on that slot (a no-op layout, as in the reference)."""
     slots = mesh.tensor_slots(data_index)
     if mesh.shape[AXIS_TENSOR] == 1:
         return replicate(model, slots[0])
     out = copy.deepcopy(model).to(slots[0])
+    unit = 2 if getattr(model, "folded", False) else 1
     for name, module in list(out.named_modules()):
-        kind = _sharded_type(module, len(slots))
+        kind = _sharded_type(module, len(slots), unit)
         if kind is None:
             continue
         parent_name, _, child = name.rpartition(".")

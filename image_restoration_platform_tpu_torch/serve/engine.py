@@ -20,6 +20,14 @@ splits the tile axis over the data slots and blends once on the first slot;
 comes back to the first slot for the one fetch. The other surfaces run on the
 first slot. A mesh of one slot is the single-device path.
 
+With ``ServingConfig.fold_w`` (on by default in the port) the restore UNets,
+and with ``fold_w_sr`` (off by default) the SR families, are served in the
+W-folded layout (models/folded.py): ``model()`` folds the family's weights once,
+``sr_batch``, ``sr_tiled`` (the mesh's too), ``restore_batch`` and
+``fuse_batch`` take the folded module, a folded family has no space-to-depth
+IO, and the fold is part of every executable's key. ``sr_spatial`` keeps the
+unfolded weights: its halo exchange is defined on them.
+
 The engine runs on ``device="cuda"`` (or its mesh's slots) unless the caller
 asks for the CPU; it never falls back to the CPU by itself, and loading a
 family on a card first checks the attention shapes it will launch
@@ -59,6 +67,7 @@ import torch
 
 from ..config import ServingConfig
 from ..models import ParamCache, get_family
+from ..models.folded import folded_model
 from ..models.nn import cast_for_compute
 from ..models.registry import check_attention_shapes
 from ..obs.metrics import get_counters
@@ -80,10 +89,23 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+FOLDED_UNETS = ("restore-unet", "restore-unet-small", "diffusion-restore")
+
+
+def uses_folded(family_name: str, config: ServingConfig) -> bool:
+    """Whether an engine of ``config`` serves ``family_name`` in the W-folded
+    layout (models/folded.py): the SR families under ``fold_w_sr``, the
+    restore UNets under ``fold_w``."""
+    if family_name.startswith("sr-"):
+        return config.fold_w_sr
+    return config.fold_w and family_name in FOLDED_UNETS
+
+
 def uses_s2d_io(family_name: str, config: ServingConfig) -> bool:
     """Whether an engine of ``config`` serves ``family_name`` with
-    space-to-depth IO (the s2d-stem UNets with RGB in and out)."""
-    if not config.s2d_io:
+    space-to-depth IO (the unfolded s2d-stem UNets with RGB in and out; the
+    folded layout has its own)."""
+    if not config.s2d_io or uses_folded(family_name, config):
         return False
     cfg = get_family(family_name).config
     return (
@@ -157,7 +179,7 @@ class RestorationEngine:
         self.params_cache = param_cache or ParamCache(seed)
         self.logger = get_logger("engine")
         self._tracer = get_tracer("engine")
-        self._models: dict[str, torch.nn.Module] = {}
+        self._models: dict[tuple, torch.nn.Module] = {}
         self._replicas: dict[tuple, list[torch.nn.Module]] = {}
         self._programs: dict = {}
         self._lock = threading.Lock()
@@ -206,22 +228,32 @@ class RestorationEngine:
 
     # ----------------------------------------------------- models/programs
 
+    def _uses_folded(self, family_name: str) -> bool:
+        return uses_folded(family_name, self.config)
+
     def _uses_s2d_io(self, family_name: str) -> bool:
         return uses_s2d_io(family_name, self.config)
 
-    def model(self, family_name: str) -> torch.nn.Module:
+    def model(self, family_name: str, folded: bool | None = None) -> torch.nn.Module:
         """The family's model on this engine's device, conv and dense
-        weights in the compute type."""
+        weights in the compute type: in the layout the engine serves it in
+        (``folded=None``), or folded or not as asked. A folded model's
+        weights are folded once, here (models/folded.py)."""
+        folded = self._uses_folded(family_name) if folded is None else folded
         with self._lock:
-            if family_name not in self._models:
+            if (family_name, folded) not in self._models:
                 family = get_family(family_name)
                 if self.device.type == "cuda":
                     check_attention_shapes(family_name, self.config.size_buckets, self.config.max_batch, self.dtype)
-                m = family.build()
-                m.load_state_dict(self.params_cache.get(family_name), strict=True)
+                state = self.params_cache.get(family_name)
+                if folded:
+                    m = folded_model(family.config, state)
+                else:
+                    m = family.build()
+                    m.load_state_dict(state, strict=True)
                 m = cast_for_compute(m, self.dtype, channels_last=self.device.type == "cuda")
-                self._models[family_name] = m.to(self.device).eval()
-            return self._models[family_name]
+                self._models[(family_name, folded)] = m.to(self.device).eval()
+            return self._models[(family_name, folded)]
 
     def _data_replicas(self, family_name: str) -> list[torch.nn.Module]:
         """The family's model for each data row of the mesh, column-parallel
@@ -236,8 +268,9 @@ class RestorationEngine:
             return self._replicas[key]
 
     def _spatial_replicas(self, family_name: str) -> list[torch.nn.Module]:
-        """The family's model on each spatial slot."""
-        model = self.model(family_name)
+        """The family's unfolded model on each spatial slot (the halo
+        exchange is defined on unfolded weights, as in the reference)."""
+        model = self.model(family_name, folded=False)
         with self._lock:
             key = ("spatial", family_name)
             if key not in self._replicas:
@@ -258,6 +291,7 @@ class RestorationEngine:
             lambda: build_restore_program(
                 family_name,
                 dtype=self.dtype,
+                use_folded=self._uses_folded(family_name),
                 use_s2d_io=self._uses_s2d_io(family_name),
                 use_deblur=self.config.deblur,
                 use_deblock=self.config.deblock,
@@ -269,14 +303,16 @@ class RestorationEngine:
 
     def _exec_key(self, tag, args, egress: str | None = None) -> tuple:
         """The executable's key: the tag, the flags that change the
-        program's structure (the gated stages add or remove segments, s2d
-        IO changes the backbone's layout), the egress, then the arguments'
-        shapes and types. The HDR pre-pass has no such structure."""
+        program's structure (the W-fold changes the model's layout and
+        weights, the gated stages add or remove segments, s2d IO changes the
+        backbone's layout), the egress, then the arguments' shapes and
+        types. The HDR pre-pass has no such structure."""
         family_name = tag if isinstance(tag, str) else tag[1]
         if isinstance(tag, tuple) and tag[0] == "hdr_deblur":
             structural: tuple = ()
         else:
             structural = (
+                ("fold_w", self._uses_folded(family_name)),
                 ("stages", self.config.deblur, self.config.deblock),
                 ("s2d_io", self._uses_s2d_io(family_name)),
             )
@@ -483,7 +519,8 @@ class RestorationEngine:
         k = canvas_u8.shape[0]
         model = self.model(family_name)
         program = self._cached_program(
-            ("fusion", family_name), lambda: build_fusion_program(family_name, dtype=self.dtype)
+            ("fusion", family_name),
+            lambda: build_fusion_program(family_name, dtype=self.dtype, use_folded=self._uses_folded(family_name)),
         )
         get_counters().inc(f"fusion_batches.{canvas_u8.shape[1]}")
         args = (
@@ -555,8 +592,8 @@ class RestorationEngine:
             program = self._cached_program(
                 tag,
                 lambda: build_sr_tiled_mesh_program(
-                    family_name, dtype=self.dtype, slots=self._homes(), tile=tile, overlap=overlap,
-                    tile_batch=tile_batch, output=output,
+                    family_name, dtype=self.dtype, use_folded=self._uses_folded(family_name), slots=self._homes(),
+                    tile=tile, overlap=overlap, tile_batch=tile_batch, output=output,
                 ),
             )
             outs, meta = self._run_executable(
@@ -568,8 +605,8 @@ class RestorationEngine:
             program = self._cached_program(
                 tag,
                 lambda: build_sr_tiled_program(
-                    family_name, dtype=self.dtype, tile=tile, overlap=overlap, tile_batch=tile_batch,
-                    output=output,
+                    family_name, dtype=self.dtype, use_folded=self._uses_folded(family_name), tile=tile,
+                    overlap=overlap, tile_batch=tile_batch, output=output,
                 ),
             )
             outs, meta = self._run_executable(

@@ -7,8 +7,9 @@ XLA program; here, on a card, it is a program's segments
 (serve/programs/segments.py) captured as CUDA graphs, one per segment and
 branch, replayed with the host reading the stage flags between them:
 
-- ``exec_key``: the tag, the structural flags, then the arguments' shapes
-  and types (the port has no W-fold, so no ``fold_w``);
+- ``exec_key``: the tag, the structural flags (the W-fold's ``fold_w``,
+  the gated stages, space-to-depth IO, the egress), then the arguments'
+  shapes and types;
 - ``ExecCache``: the in-memory executables, the single-flight gate (one
   thread builds a key, the others wait for it) and ``compile_count``;
 - ``GraphExecutable``: static input buffers; a warm-up pass on a side

@@ -9,18 +9,22 @@ from __future__ import annotations
 import torch
 
 from ...classify.fused import batch_classify_and_condition
+from .restore import check_layout
 from .segments import Piece, Program
 
 
-def build_fusion_program(family_name: str, *, dtype: torch.dtype):
+def build_fusion_program(family_name: str, *, dtype: torch.dtype, use_folded: bool = False):
     """``fn(model, canvas [K,B,B,3] u8, valid_hw, is_jpeg_f)`` ->
     (fused [B,B,3] u8, scores [K,7]).
 
     Each image is classified and restored, then blended with per-image
     weights from its degradation scores: cleaner inputs (low blur, noise and
-    lowLight) dominate the composite. One segment (no stage decision)."""
+    lowLight) dominate the composite. One segment (no stage decision).
+    ``use_folded``: the program runs a W-folded model (models/folded.py)."""
 
     def pieces(model, shapes):
+        check_layout(model, use_folded)
+
         def run(s):
             scores, cond = batch_classify_and_condition(s["canvas"].float(), s["valid_hw"], s["is_jpeg"])
             x = s["canvas"].to(dtype) / 255.0

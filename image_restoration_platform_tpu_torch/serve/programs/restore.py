@@ -33,6 +33,7 @@ import torch
 from ...classify.fused import batch_classify_and_condition
 from ...models import diffusion, get_family
 from ...models import nn as mnn
+from ...models.folded import is_folded
 from ...ops import deblock, deblur
 from .egress import to_yuv420, to_yuv420_s2d
 from .segments import Piece, Program
@@ -123,6 +124,13 @@ def stage_pieces(shape, *, use_deblock: bool, use_deblur: bool) -> list[Piece]:
     return pieces
 
 
+def check_layout(model, use_folded: bool) -> None:
+    """Refuse a model (or list of replicas) whose layout is not the one the
+    program was built for: a program's executable key carries the fold."""
+    if is_folded(model) != use_folded:
+        raise ValueError(f"the program was built for a {'folded' if use_folded else 'unfolded'} model")
+
+
 def _flags(s: dict) -> dict:
     fires = {k.split(".", 1)[1]: v for k, v in s.items() if k.startswith("fires.")}
     return {"flags": fire_flags(fires, s["scores"].shape[0], s["scores"].device)}
@@ -136,6 +144,7 @@ def build_restore_program(
     use_deblur: bool,
     use_deblock: bool,
     egress: str = "rgb",
+    use_folded: bool = False,
 ) -> Program:
     """``fn(model, canvas_u8 [N,B,B,3] u8, valid_hw [N,2] int32,
     is_jpeg_f [N] f32[, noise]) -> (out, scores [N,7])``, all tensors on the
@@ -147,14 +156,20 @@ def build_restore_program(
     ``STAGE_FIRES``' names. For an SR family: ``fn(model, imgs_u8
     [N,H,W,3]) -> [N,H*scale,W*scale,3] u8``. The flat outputs
     (``Program.outputs``) are the output tensors, ``scores`` and ``flags``
-    ([N, 3] u8 of the fire masks)."""
+    ([N, 3] u8 of the fire masks). ``use_folded``: the program runs a W-folded
+    model (models/folded.py), which has no space-to-depth IO, so its
+    YCbCr planes come from the RGB output."""
     if egress not in ("rgb", "yuv420", "f32"):
         raise ValueError(f"unknown egress {egress!r}")
+    if use_folded and use_s2d_io:
+        raise ValueError("a folded model has no space-to-depth IO")
     cfg = get_family(family_name).config
 
     if family_name.startswith("sr-"):
 
         def sr_pieces(model, shapes):
+            check_layout(model, use_folded)
+
             def sr(s):
                 out = model(s["imgs"].to(dtype) / 255.0)
                 return {"out": torch.clamp(torch.round(out.float() * 255.0), 0, 255).to(torch.uint8)}
@@ -169,6 +184,8 @@ def build_restore_program(
     if family_name == "diffusion-restore":
 
         def diffusion_pieces(model, shapes):
+            check_layout(model, use_folded)
+
             def backbone(s):
                 x = s["canvas"].to(dtype) / 255.0
                 out = diffusion.restore(model, x, s["cond"].to(dtype), s["noise"], cfg)
@@ -201,6 +218,7 @@ def build_restore_program(
         return {"out": torch.round(out * 255.0).to(torch.uint8)}
 
     def restore_pieces(model, shapes):
+        check_layout(model, use_folded)
         stages = stage_pieces(shapes[0], use_deblock=use_deblock, use_deblur=use_deblur)
         return [*stages, Piece(lambda s: backbone(model, s)), Piece(_flags)]
 

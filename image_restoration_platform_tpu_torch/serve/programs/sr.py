@@ -27,7 +27,7 @@ from ...parallel.halo import spatial_shard_model_apply
 from ...parallel.mesh import AXIS_SPATIAL
 from ...parallel.sharding import gather, split_batch
 from .egress import to_yuv420
-from .restore import PLANES
+from .restore import PLANES, check_layout
 from .segments import Piece, Program
 
 
@@ -40,15 +40,19 @@ def _emit(out: torch.Tensor, output: str):
 
 def build_sr_tiled_program(
     family_name: str, *, dtype: torch.dtype, tile: int, overlap: int, tile_batch: int, output: str,
+    use_folded: bool = False,
 ):
     """``fn(model, canvas [H,W,3] u8)`` -> the RGB u8 canvas at
     ``[H*scale, W*scale, 3]``, or with ``output="yuv420"`` its (Y, Cb, Cr)
-    u8 planes: one segment, the blend kernel's launch inside it."""
+    u8 planes: one segment, the blend kernel's launch inside it.
+    ``use_folded``: the model is the W-folded SRNet (models/folded.py)."""
     if output not in ("rgb", "yuv420"):
         raise ValueError(f"unknown output {output!r}")
     scale = get_family(family_name).config.scale
 
     def pieces(model, shapes):
+        check_layout(model, use_folded)
+
         def per_tiles(tiles):
             # the limiter's f32 output goes straight to the 255 scaling
             return model(tiles.to(dtype) / 255.0).float() * 255.0
@@ -67,6 +71,7 @@ def build_sr_tiled_program(
 
 def build_sr_tiled_mesh_program(
     family_name: str, *, dtype: torch.dtype, slots: list, tile: int, overlap: int, tile_batch: int, output: str,
+    use_folded: bool = False,
 ) -> Program:
     """``fn(models, canvas [H,W,3] u8)``, ``models`` the network on each of
     the data ``slots`` and the canvas on the first: the tiles are cut on the
@@ -76,7 +81,8 @@ def build_sr_tiled_mesh_program(
     there in one launch. Each slot sees chunks of ``tile_batch`` tiles, as
     the single-device program does, so the output is the same. One
     segment; the padding and the chunks are fixed from the canvas shape
-    when the segments are made, so a capture holds them."""
+    when the segments are made, so a capture holds them. ``use_folded``:
+    the models are the W-folded SRNet (models/folded.py)."""
     from ...ops.cuda.blend import blend_tiles
 
     if output not in ("rgb", "yuv420"):
@@ -86,6 +92,7 @@ def build_sr_tiled_mesh_program(
     mesh_chunk = tile_batch * dp
 
     def pieces(models, shapes):
+        check_layout(models, use_folded)
         h, w, _ = shapes[0]
         stride = tile - overlap
         n = len(tile_grid(h, tile, stride)) * len(tile_grid(w, tile, stride))

@@ -16,7 +16,9 @@ at the largest graph's working memory. On a mesh engine the same calls
 build the mesh executables (the ``"mesh"`` restore step of every bucket the
 data axis rounds to, ``"sr_tiled_mesh"``), and on a spatial mesh the SR
 families warm ``sr_spatial`` at every canvas the restorator row-shards in
-place of the tiled programs.
+place of the tiled programs. A surface the engine serves W-folded
+(``fold_w``, ``fold_w_sr``: models/folded.py) warms its folded executable,
+under a key that carries the fold.
 """
 
 from __future__ import annotations

@@ -167,7 +167,7 @@ def test_diffusion_program_matches_jax():
                                  jnp.asarray(is_jpeg), key)
     engine = RestorationEngine(device="cpu", serving_config=ServingConfig(size_buckets=(64,), max_batch=2))
     program = build_restore_program(FAMILY, dtype=torch.float32, use_s2d_io=False, use_deblur=True, use_deblock=True)
-    out, scores = program(engine.model(FAMILY), torch.from_numpy(canvas), torch.from_numpy(valid),
+    out, scores = program(engine.model(FAMILY, folded=False), torch.from_numpy(canvas), torch.from_numpy(valid),
                           torch.from_numpy(is_jpeg), torch.from_numpy(noise))
     assert out.dtype == torch.uint8 and tuple(out.shape) == (2, 64, 64, 3)
     assert np.abs(out.numpy().astype(np.int32) - np.asarray(ref_out).astype(np.int32)).max() <= 1

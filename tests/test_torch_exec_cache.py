@@ -229,7 +229,7 @@ def test_segmented_restore_program_equals_the_unsegmented_stages(batch):
     by its host flag: the same bytes, scores and fire masks as the stage
     functions called whole, on batches that fire each stage or none."""
     engine = _engine()
-    model = engine.model(FAMILY)
+    model = engine.model(FAMILY, folded=False)
     program = build_restore_program(FAMILY, dtype=torch.float32, use_s2d_io=False, use_deblur=True,
                                     use_deblock=True)
     canvas, is_jpeg = BATCHES[batch]()
@@ -343,3 +343,40 @@ def test_graph_replay_equals_eager_and_writes_only_its_own_memory(card):
     torch.cuda.synchronize()
     assert all(bool((c == 7.0).all()) for c in canaries)
     assert engine.exec_stats()["graphs"] > 0 and twin.exec_stats()["graphs"] == 0
+
+
+@pytest.mark.cuda
+def test_folded_graphs_equal_eager(card):
+    """On the card: the W-folded modules (``fold_w``, ``fold_w_sr``) capture
+    into the CUDA graphs as the unfolded ones do. Every folded surface the
+    warm-up built gives its eager twin's bytes and kernel launches, and
+    serving them builds nothing."""
+    from image_restoration_platform_tpu_torch.models.folded import FoldedSRNet, FoldedUNet
+    from image_restoration_platform_tpu_torch.ops.cuda.blend import blend_kernel
+
+    cfg = ServingConfig(size_buckets=(SIZE,), max_batch=2, fold_w=True, fold_w_sr=True)
+    engine = RestorationEngine(device=card, dtype=torch.float32, serving_config=cfg)
+    twin = RestorationEngine(device=card, dtype=torch.float32, serving_config=cfg, param_cache=engine.params_cache,
+                             eager=True)
+    engine.warmup_serving(families=(FAMILY, "sr-x2", "fusion"), sr_tiled_canvas=256)
+    builds = engine.compile_count
+    assert isinstance(engine.model(FAMILY), FoldedUNet) and isinstance(engine.model("sr-x2"), FoldedSRNet)
+    canvas, is_jpeg = BATCHES["both"]()
+    surfaces = {
+        "restore": lambda e: e.restore_batch(canvas, is_jpeg=is_jpeg, family_name=FAMILY)[:2],
+        "sr": lambda e: e.sr_batch(canvas[:1], "sr-x2")[:1],
+        "sr_tiled": lambda e: e.sr_tiled(np.tile(canvas[0], (2, 2, 1)), "sr-x2", tile=256)[:1],
+        "fusion": lambda e: e.fuse_batch(np.repeat(canvas[:1], 3, axis=0), np.tile([[SIZE, SIZE]], (3, 1)),
+                                         np.zeros(3, np.float32), "restore-unet")[:2],
+    }
+    for name, run in surfaces.items():
+        counts = []
+        outs = []
+        for e in (engine, twin):
+            flash_kernel.launches = blend_kernel.launches = 0
+            outs.append(run(e))
+            counts.append((flash_kernel.launches, blend_kernel.launches))
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        assert counts[0] == counts[1], (name, counts)
+    assert engine.compile_count == builds and engine.exec_stats()["graphs"] > 0

@@ -58,8 +58,8 @@ def test_fusion_program_matches_jax(engine, k):
         ref_fused, ref_scores = fn(JParamCache(0).get(FAMILY), jnp.asarray(canvas), jnp.asarray(valid),
                                    jnp.asarray(is_jpeg))
     program = build_fusion_program(FAMILY, dtype=torch.float32)
-    fused, scores = program(engine.model(FAMILY), torch.from_numpy(canvas), torch.from_numpy(valid),
-                            torch.from_numpy(is_jpeg))
+    model = engine.model(FAMILY, folded=False)  # the reference program's layout
+    fused, scores = program(model, torch.from_numpy(canvas), torch.from_numpy(valid), torch.from_numpy(is_jpeg))
     assert fused.dtype == torch.uint8 and tuple(fused.shape) == (64, 64, 3) and tuple(scores.shape) == (k, 7)
     assert np.abs(fused.numpy().astype(np.int32) - np.asarray(ref_fused).astype(np.int32)).max() <= 1
     np.testing.assert_allclose(scores.numpy(), np.asarray(ref_scores), rtol=0, atol=1e-5)

@@ -26,6 +26,7 @@ from image_restoration_platform_tpu.train.ood import ood_clean
 from image_restoration_platform_tpu_torch import imageio
 from image_restoration_platform_tpu_torch.config import ServingConfig
 from image_restoration_platform_tpu_torch.models import ParamCache
+from image_restoration_platform_tpu_torch.models.folded import fold_state
 from image_restoration_platform_tpu_torch.ops.deblock import deblock_canvas_batch
 from image_restoration_platform_tpu_torch.ops.deblur import deblur_canvas_batch
 from image_restoration_platform_tpu_torch.serve import MicroBatcher, RestorationEngine, RestoratorService
@@ -81,8 +82,8 @@ def test_program_256_matches_jax(program_case):
     engine = RestorationEngine(device="cpu", serving_config=ServingConfig(size_buckets=(256,), max_batch=4))
     fn = build_restore_program("restore-unet", dtype=torch.float32, use_s2d_io=True, use_deblur=True,
                                use_deblock=True, egress="yuv420")
-    planes, scores = fn(engine.model("restore-unet"), torch.from_numpy(canvas), torch.from_numpy(valid),
-                        torch.from_numpy(is_jpeg))
+    model = engine.model("restore-unet", folded=False)  # the program of the reference's default layout
+    planes, scores = fn(model, torch.from_numpy(canvas), torch.from_numpy(valid), torch.from_numpy(is_jpeg))
     for got, ref, shape in zip(planes, ref_planes, [(3, 256, 256), (3, 128, 128), (3, 128, 128)]):
         assert tuple(got.shape) == shape and got.dtype == torch.uint8
         assert np.abs(got.numpy().astype(np.int32) - ref.astype(np.int32)).max() <= 1
@@ -215,6 +216,10 @@ def test_hdr_switch_off_serves_16_bit_png_on_the_8_bit_path(monkeypatch):
 def test_param_cache_is_shared_by_engine():
     cache = ParamCache(0)
     engine = RestorationEngine(device="cpu", param_cache=cache)
-    model = engine.model("restore-unet-small")
-    assert model is engine.model("restore-unet-small")
+    model = engine.model("restore-unet-small", folded=False)
+    assert model is engine.model("restore-unet-small", folded=False)
     assert torch.equal(model.stem.w, cache.get("restore-unet-small")["stem.w"])
+    # the served layout's model folds the same cached weights (ServingConfig.fold_w)
+    served = engine.model("restore-unet-small")
+    assert served is engine.model("restore-unet-small") and served.folded == engine.config.fold_w
+    assert torch.equal(served.stem.w, fold_state(cache.get("restore-unet-small"), served.config)["stem.w"])

@@ -3,8 +3,9 @@
 ``engine.sr_batch`` and ``engine.sr_tiled`` (64 canvas, tile 32, overlap 8,
 tile batch 4, RGB and yuv420, as tests/test_sr_fusion.py drives the
 reference) with the shipped sr-x2 weights in f32, against the JAX engine
-built with ``fold_w_sr=False`` (the port has no W-fold; the fold is exactly
-``srnet.apply``). Bar on u8 outputs: at most 1 level apart, on under 1 % of
+built with ``fold_w_sr=False``; the port's engine serves SRNet in the layout
+its ``ServingConfig`` default gives (``fold_w_sr``, models/folded.py: the
+same function up to the order of the sums). Bar on u8 outputs: at most 1 level apart, on under 1 % of
 the pixels (f32 round-off moves a value across a rounding boundary now and
 then; measured 1 level on 0.25 % of the pixels). Then the restorator's SR result
 contract against the reference's, on ``device="cpu"``."""

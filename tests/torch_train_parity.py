@@ -91,7 +91,7 @@ def narrow_families():
             jreg.register(jreg.ModelFamily(name, jdiff.init, jdiff.restore, jcfg))
         else:
             jreg.register(jreg.ModelFamily(name, junet.init, junet.apply, jcfg))
-        treg._FAMILIES[name] = treg.ModelFamily(name, tcfg)
+        treg.register(treg.ModelFamily(name, tcfg))
     try:
         yield
     finally:
