@@ -15,15 +15,18 @@ failure (exit code 1):
 2. kernels: builds every CUDA source under csrc/ with nvcc (one process per
    source, started together), holds every variant of each kernel that its
    wrapper can choose against its plain PyTorch version on the card at its
-   path's shapes (attention: wgmma with one consumer warpgroup, with three,
-   and with three on some heads and two on the rest, mma.sync at D = 32 and
-   at a T that is no multiple of 128, SIMT f32, each on unit-variance and
-   peaked-logit inputs; blend: vector and
+   path's shapes (attention: wgmma at D = 64 and 32 with one consumer
+   warpgroup, with three, and with three on some heads and two on the rest,
+   each on the plan ``launch_plan`` picks: one block a unit, a persistent
+   grid or a key split over a cluster; mma.sync at a T that is no multiple
+   of 128; SIMT f32; each on unit-variance and peaked-logit inputs, and every
+   plan once more at small shapes, FORCED_PLANS; blend: vector and
    scalar on the 2K -> 4K grid, a clamped grid, overlap = T/2, odd origins
    and a single tile), and times the kernel, the plain version and the
    library call that computes the same function beside the computed bound
-   (CUDA events around 10 back-to-back calls queued behind a sleep kernel,
-   so host dispatch is not timed; median of 20 such groups after warm-up);
+   and, for attention, the exponential limit ``exp_ms`` (CUDA events around
+   10 back-to-back calls queued behind a sleep kernel, so host dispatch is
+   not timed; median of 20 such groups after warm-up);
 3. slice: RestoratorService + MicroBatcher + RestorationEngine(bf16) with
    the shipped weights serve, path by path with the kernels' launch counts
    set to 0 before each and read after it, after ``warmup_serving`` at the
@@ -164,6 +167,8 @@ plain forward at [32, 4, 256, 64].
 
 ``--report PATH`` also writes the full report as JSON to PATH;
 ``--kernels-only`` stops after phase 2 (a quick check of a changed kernel),
+``--plan-sweep`` times every attention plan the wrapper weighs at every
+launched shape after it and fits the plan model to the times,
 and ``--train-only``, ``--mesh-only``, ``--quality-only``,
 ``--graphs-only`` and ``--fold-only`` run phase 6, 7, 8, 9 or 10 (after its
 own warm-up) alone after the builds; they print no result lines and exit 0 or 1. The last
@@ -206,18 +211,33 @@ KERNEL_SHAPES = [  # (shape [N,H,T,D], dtype, where the path uses it)
     ((4, 4, 256, 64), "float32", "mesh train step 128 b8 on data=2 (the f32 check): one slot's shard"),
     ((8, 4, 256, 64), "bfloat16", "quality gates: restore-unet 128 b8"),
     ((8, 4, 1024, 64), "bfloat16", "quality gates: diffusion-restore 128 b8"),
+    ((32, 2, 4096, 32), "bfloat16", "training restore-unet-small 128 b32"),
+    ((2, 4, 1024, 64), "bfloat16", "restore-unet 256 b2 / b4 serving; diffusion-restore 128"),
+    ((4, 4, 1024, 64), "bfloat16", "restore-unet 256 b2 / b4 serving; diffusion-restore 128"),
 ]
 # the gradient check: dq, dk, dv through FlashAttention (kernel forward, plain
 # backward) against autograd through the plain forward, at the training shape
 GRAD_SHAPE = (32, 4, 256, 64)
 # every variant ops.cuda.attention.launch_plan can choose has a shape above
 ATTENTION_VARIANTS = ("wgmma_q64", "wgmma_q192", "mma_sync", "simt_f32")
-# Which tiles the wgmma kernel gets depends on the card's SM count, so every
-# tile choice is also forced once, for correctness only, at a small shape whose
-# T is no multiple of 192 (the last block of a head reaches past it):
-# (consumer warpgroups, heads of the 20 that take the full 192-query blocks)
-FORCED_PLAN_SHAPE = (5, 4, 640, 64)
-FORCED_PLANS = ((1, 20), (3, 20), (3, 7), (3, 0))
+# Which plan the wgmma kernel gets depends on the card's SM count, so every
+# plan it can take is also forced once, for correctness only, on peaked
+# inputs: (shape, consumer warpgroups, heads of the N*H that take the full
+# 192-query units, key splits, clusters or None for one a unit). At T = 640
+# (no multiple of 192: the last unit of a head reaches past it) one
+# warpgroup on 64 queries, three on 192, the mix of 192- and 128-query units,
+# and persistent grids that walk several units a block (unevenly: 80, 100 and
+# 200 units on 7, 9 and 13 blocks); at T = 1024 the key split over clusters
+# of 2 and 4 blocks, on alike and on mixed units (three warpgroups split 4 ways
+# only at D = 32: at D = 64 their partials outgrow shared memory); each at
+# D = 64 and D = 32.
+FORCED_PLANS = tuple(
+    plan for d in (64, 32) for plan in (
+        ((5, 4, 640, d), 1, 20, 1, None), ((5, 4, 640, d), 3, 20, 1, None), ((5, 4, 640, d), 3, 7, 1, None),
+        ((5, 4, 640, d), 3, 0, 1, None), ((5, 4, 640, d), 3, 20, 1, 7), ((5, 4, 640, d), 3, 0, 1, 9),
+        ((5, 4, 640, d), 1, 20, 1, 13), ((3, 4, 1024, d), 1, 12, 2, None), ((3, 4, 1024, d), 1, 12, 4, None),
+        ((3, 4, 1024, d), 3, 12, 2, None), ((3, 4, 1024, d), 3, 5, 2, None),
+        ((3, 4, 1024, d), 3, 0, 4 if d == 32 else 2, None)))
 # bf16 is held to ops.cuda.attention.bf16_parity_bar: 0.02 (the reference's
 # own) and at most 4 bf16 ulps of max |plain|, since at T = 4096 with
 # unit-variance inputs a typical output is ~0.03. f32 is held to 1e-4.
@@ -440,6 +460,21 @@ def attention_bound_ms(shape, dtype: str) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def sm_clock_hz(torch) -> float:
+    """The SM clock ``torch.cuda.get_device_properties`` reports (kHz)."""
+    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 0)
+    check(khz > 0, "torch.cuda.get_device_properties reports no SM clock (clock_rate)")
+    return 1e3 * float(khz)
+
+
+def attention_exp_ms(shape, sm_count: int, clock_hz: float) -> float:
+    """The exponential limit: N H T^2 exp2 at 16 a clock per SM (the SFU
+    rate of Hopper). A limit of its own beside ``attention_bound_ms``: at
+    D = 32 it is the larger of the two."""
+    n, h, t, _ = shape
+    return 1e3 * n * h * t * t / (16 * sm_count * clock_hz)
+
+
 def blend_bound_ms(n_tiles: int, t: int, c: int, out_h: int, out_w: int) -> tuple[float, str]:
     from image_restoration_platform_tpu_torch.utils.peaks import HBM_BYTES_PER_S, PEAK_FLOPS
 
@@ -549,6 +584,8 @@ def phase_kernels(torch, report):
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = sm_clock_hz(torch)
+    print(json.dumps({"sm_count": sm_count, "sm_clock_mhz": clock_hz / 1e6}), flush=True)
     rows = []
     for shape, dtype, where in KERNEL_SHAPES:
         dt = getattr(torch, dtype)
@@ -566,12 +603,12 @@ def phase_kernels(torch, report):
         bound, bound_by = attention_bound_ms(shape, dtype)
         row = {
             "kernel": "flash_attention", "variant": plan.variant, "shape": list(shape), "dtype": dtype,
-            "path": where, "plan": dataclasses.asdict(plan),
+            "path": where, "plan": dataclasses.asdict(plan), "schedule": plan.schedule,
             "max_abs_err": max(c["max_abs_err"] for c in checks.values()), "checks": checks,
             "ms": time_ms(torch, lambda: A.flash_kernel(q, k, v)),
             "plain_ms": time_ms(torch, lambda: A.attention_reference(q, k, v)),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
-            "bound_ms": bound, "bound_by": bound_by,
+            "bound_ms": bound, "bound_by": bound_by, "exp_ms": attention_exp_ms(shape, sm_count, clock_hz),
         }
         print(json.dumps(row), flush=True)
         for inputs, c in checks.items():
@@ -581,20 +618,21 @@ def phase_kernels(torch, report):
     check(seen == set(ATTENTION_VARIANTS) == set(A.VARIANTS),
           f"attention variants checked {sorted(seen)}, the wrapper has {sorted(A.VARIANTS)}")
 
-    n, h, t, _ = FORCED_PLAN_SHAPE
-    q, k, v = (torch.randn(FORCED_PLAN_SHAPE, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
-    q, v = q * INPUT_SCALES["peaked"][0], v * INPUT_SCALES["peaked"][1]
-    ref = A.attention_reference(q, k, v)
     forced = []
-    for consumers, full_heads in FORCED_PLANS:
-        plan = A.wgmma_plan(n * h, t, consumers, full_heads)
+    for shape, consumers, full_heads, splits, clusters in FORCED_PLANS:
+        n, h, t, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        q, v = q * INPUT_SCALES["peaked"][0], v * INPUT_SCALES["peaked"][1]
+        ref = A.attention_reference(q, k, v)
+        plan = A.wgmma_plan(n * h, t, consumers, full_heads, d=d, splits=splits, clusters=clusters)
         out = A.flash_kernel(q, k, v, plan=plan)
-        row = {"kernel": "flash_attention", "variant": plan.variant, "shape": list(FORCED_PLAN_SHAPE),
-               "grid": list(plan.grid), "full_heads": plan.full_heads,
+        row = {"kernel": "flash_attention", "variant": plan.variant, "shape": list(shape), "schedule": plan.schedule,
+               "grid": list(plan.grid), "units": plan.units, "splits": plan.splits, "full_heads": plan.full_heads,
                "max_abs_err": float((out.float() - ref.float()).abs().max()), "tolerance": A.bf16_parity_bar(ref)}
         print(json.dumps(row), flush=True)
         check(row["max_abs_err"] <= row["tolerance"], f"flash attention, forced plan: {row}")
         forced.append(row)
+    check({r["schedule"] for r in forced} == {"grid", "persistent", "split"}, "a schedule of the wgmma kernel is not forced")
     # gradients at the training shape: FlashAttention (the kernel's forward,
     # the plain backward) against autograd through the plain forward
     q, k, v = (torch.randn(GRAD_SHAPE, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
@@ -613,6 +651,103 @@ def phase_kernels(torch, report):
     report["kernel_forced_plans"] = forced
     report["kernel_gradients"] = grads
     return rows
+
+
+def phase_plan_sweep(torch, report):
+    """The plans ``wgmma_candidates`` weighs (of its mixes of 192- and
+    128-query units the model's best of each kind and the alike ones) and
+    the alike-unit grids beside them, timed at every bf16 row of KERNEL_SHAPES that the wgmma
+    kernel takes, each first held to the bf16 bar: the measurements that
+    ``UNIT_COST_US`` is fitted to and the plan's choice is checked against.
+    Prints one line a shape (ms and the model's microseconds a plan)."""
+    from image_restoration_platform_tpu_torch.ops.cuda import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    sweep = []
+    for shape, dtype, where in KERNEL_SHAPES:
+        n, h, t, d = shape
+        if dtype != "bfloat16" or t % A.WGMMA_TILE_KEYS:
+            continue
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        ref = A.attention_reference(q, k, v)
+        chosen = A.launch_plan(shape, torch.bfloat16, sm_count)
+        weighed = A.wgmma_candidates(n * h, t, d, sm_count)
+        # of the mixes of 192- and 128-query units, the model's best of each
+        # (block, schedule, splits) and the alike ones
+        best = {}
+        for plan in weighed:
+            key = (plan.block_q, plan.schedule, plan.splits)
+            if key not in best or A.plan_us(plan, t, d, sm_count) < A.plan_us(best[key], t, d, sm_count):
+                best[key] = plan
+        plans = [p for p in weighed if p in best.values() or p.full_heads in (0, n * h)]
+        for consumers, full in ((3, n * h), (3, 0), (1, n * h)):
+            alike = [A.wgmma_plan(n * h, t, consumers, full, d=d)]
+            if alike[0].units > sm_count:
+                alike.append(A.wgmma_plan(n * h, t, consumers, full, d=d, clusters=sm_count))
+            plans += [p for p in alike if p not in plans]
+        rows = []
+        for plan in plans:
+            err = float((A.flash_kernel(q, k, v, plan=plan).float() - ref.float()).abs().max())
+            check(err <= A.bf16_parity_bar(ref), f"flash attention {shape}, plan {plan}: max error {err}")
+            rows.append({"variant": plan.variant, "schedule": plan.schedule, "full_heads": plan.full_heads,
+                         "units": plan.units, "splits": plan.splits, "clusters": plan.clusters,
+                         "stages": plan.stages, "chosen": plan == chosen, "weighed": plan in weighed,
+                         "ms": time_ms(torch, lambda: A.flash_kernel(q, k, v, plan=plan), groups=10),
+                         "model_us": A.plan_us(plan, t, d, sm_count)})
+        line = {"plan_sweep": list(shape), "path": where, "plans": rows}
+        print(json.dumps(line), flush=True)
+        sweep.append(line)
+    report["plan_sweep"] = sweep
+    report["unit_cost_fit"] = fit_unit_costs(sweep, sm_count)
+    print(json.dumps({"unit_cost_fit": report["unit_cost_fit"]}), flush=True)
+    return sweep
+
+
+def fit_unit_costs(sweep, sm_count: int = 132) -> dict:
+    """Least squares of the plan model (ops/cuda/attention.py ``plan_us``:
+    UNIT_COST_US, PERSISTENT_UNIT_US, SPLIT_COMBINE_US, and a launch L
+    beside them) on every plan the sweep timed that the wrapper weighs, each
+    residual relative to its measured time (scipy's least_squares from a
+    start at 1 microsecond). Prints nothing; returns the fit and its
+    residuals."""
+    from unittest import mock
+
+    import numpy as np
+    from scipy.optimize import least_squares
+
+    from image_restoration_platform_tpu_torch.ops.cuda import attention as A
+
+    keys = [(w, d) for d in (64, 32) for w in (3, 2, 1)]
+    cases = []
+    for line in sweep:
+        n, h, t, d = line["plan_sweep"]
+        for p in line["plans"]:
+            if not p["weighed"]:
+                continue
+            plan = A.wgmma_plan(n * h, t, int(p["variant"].split("q")[-1]) // 64, p["full_heads"], d=d,
+                                splits=p["splits"], clusters=p["clusters"])
+            cases.append((plan, t, d, 1e3 * p["ms"]))
+
+    def costs(x):
+        unit = {k: (x[3 + 2 * i], x[4 + 2 * i]) for i, k in enumerate(keys)}
+        return unit, x[1], x[2]
+
+    def residuals(x):
+        # plan_us reads the module's costs: the trial values stand in for them here
+        unit, persistent_us, split_us = costs(x)
+        with mock.patch.multiple(A, UNIT_COST_US=unit, PERSISTENT_UNIT_US=persistent_us,
+                                 SPLIT_COMBINE_US=split_us):
+            return np.array([(x[0] + A.plan_us(plan, t, d, sm_count)) / us - 1.0 for plan, t, d, us in cases])
+
+    fit = least_squares(residuals, np.ones(3 + 2 * len(keys)), bounds=(0.0, np.inf), diff_step=1e-3)
+    unit, persistent_us, split_us = costs(fit.x)
+    resid = residuals(fit.x)
+    return {"launch_us": float(fit.x[0]), "PERSISTENT_UNIT_US": float(persistent_us),
+            "SPLIT_COMBINE_US": float(split_us),
+            "UNIT_COST_US": {f"{w},{d}": [float(a), float(b)] for (w, d), (a, b) in unit.items()},
+            "relative_residual_rms": float(np.sqrt(np.mean(resid ** 2))),
+            "relative_residual_max": float(np.abs(resid).max()), "plans": len(cases)}
 
 
 def serving_warmup(torch, engine, card, report) -> dict:
@@ -2721,6 +2856,9 @@ def main() -> int:
     parser.add_argument("--report", help="also write the full report as JSON to this path")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernels' build and checks; prints no result lines")
+    parser.add_argument("--plan-sweep", action="store_true",
+                        help="after the kernels' checks, time every attention plan the wrapper weighs at "
+                             "every launched shape; prints no result lines")
     parser.add_argument("--mesh-only", action="store_true",
                         help="build the kernels and run the mesh phase (7) alone; prints no result lines")
     parser.add_argument("--quality-only", action="store_true",
@@ -2769,6 +2907,9 @@ def main() -> int:
         builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE)))
     report["build_s"] = time.perf_counter() - t
     report["build_s_by_source"] = {source: seconds for source, _, seconds in builds}
+    report["ptxas"] = {source: [line.strip() for line in log.splitlines()
+                                if "registers" in line or "spill" in line or "Compiling entry" in line]
+                       for source, log, _ in builds}
     for source, log, seconds in builds:
         print(f"kernel build: {source} {seconds:.1f} s", flush=True)
         for line in log.splitlines():
@@ -2815,6 +2956,14 @@ def main() -> int:
         return 0
     rows = phase_kernels(torch, report)
     blend_rows = phase_blend_kernel(torch, report)
+    if args.plan_sweep:
+        phase_plan_sweep(torch, report)
+        if args.report:
+            os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        print(f"plan sweep: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     if args.kernels_only:
         print(f"kernels only: {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
@@ -2839,7 +2988,8 @@ def main() -> int:
     keys = ("variant", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # every variant at every shape it was held at, with its launches on the driven paths
     attention_variants = [
-        {**{k: r[k] for k in keys}, "shape": r["shape"], "dtype": r["dtype"],
+        {**{k: r[k] for k in keys}, "schedule": r["schedule"], "splits": r["plan"]["splits"],
+         "shape": r["shape"], "dtype": r["dtype"],
          "launches": PATH_LAUNCHES_BY_VARIANT["flash_attention"].get(r["variant"], 0)} for r in rows]
     blend_variants = [
         {**{k: r[k] for k in keys}, "variant": variant, **by, "canvas": r["canvas"], "tile": r["tile"],

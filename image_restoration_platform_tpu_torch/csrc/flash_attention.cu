@@ -15,38 +15,55 @@
 // [32, 4096, 64] bf16 it does 4 * 32 * 4096^2 * 64 = 137 GFLOP (0.139 ms at
 // peak) and must move 67 MB of q/k/v/o (0.02 ms): operations. A second limit
 // sits beside the first: 32 * 4096^2 = 537 M exponentials at 16 per clock per
-// SM take about as long again (~0.14 ms), and so do the ~4.5 instructions per
+// SM take about as long again (~0.13 ms), and so do the ~4.5 instructions per
 // logit of the softmax (max, scale, sum, round) at one a clock per scheduler.
-// The three have to overlap. At [4, 1024, 64] (1.1 GFLOP) it is bound by the
-// launch and by how many SMs the grid reaches.
+// The three have to overlap. At D = 32 the exponentials are the larger limit
+// (each logit costs one ex2 and only 32 multiply-adds a product). At
+// [4, 1024, 64] (1.1 GFLOP) it is bound by the launch, by how many SMs the
+// grid reaches and by the serial rounds of one block.
 //
 // Variants (the wrapper, ops/cuda/attention.py launch_plan, picks one per call):
 //
-// * wgmma (bf16, D = 64, T a multiple of 128). Warp-specialised. One producer
-//   warp keeps TMA loads of 128-key K and V tiles in flight through a ring of
-//   up to 4 stages in dynamic shared memory (128-byte swizzle: one row of 64
-//   bf16 is one swizzle row), with full/empty mbarriers per stage, K and V
-//   apart so that S can start before V has landed. One or three consumer
-//   warpgroups own 64 query rows each. S = Q K^T is wgmma m64n128k16 with both
-//   operands in shared memory (K as it lies, K-major); the f32 accumulator of
-//   S, rounded to bf16, is the A fragment of O += P V (m64n64k16, A from
-//   registers), whose B is the V tile as it lies, read MN-major through the
-//   descriptor, so nothing is transposed or copied. Schedule per warpgroup: S
-//   of tile j and P V of tile j-1 are issued together, then the softmax of
-//   tile j. The three warpgroups of a block issue in turn (named barriers), so
-//   one runs its exponentials while another's products are in the tensor
-//   cores; three, not two, because with 12 consumer warps each scheduler has
-//   three instruction streams to fill its issue slots from. They get 160
-//   registers each (64 S + 32 O + 32 P), the producer gives its own up
-//   (setmaxnreg 24 / 160). 192 query rows do not divide T = 4096: the last
-//   block of a head reaches past it and stores only its own rows. The wrapper
-//   may give the last heads of a launch blocks of two warpgroups (128 rows,
-//   the third warpgroup leaves at once) so that the last wave of blocks is
-//   short. Measured on an H100 SXM at 700 W: 0.276 ms at [32, 4096, 64], 50 % of
-//   the bound (the mma.sync kernel before it: 0.666 ms); 0.0096 ms at
-//   [4, 1024, 64]. History and method: PERF.md section 6.
-// * mma.sync (bf16, D = 32, or D = 64 with T a multiple of 64 but not of 128):
-//   the first port's kernel, 4 warps on 64 queries, 64-key tiles, m16n8k16.
+// * wgmma (bf16, D = 32 or 64, T a multiple of 128). Warp-specialised. One
+//   producer warp keeps TMA loads of 128-key K and V tiles in flight through a
+//   ring of up to 4 stages in dynamic shared memory (a row of D bf16 is one
+//   swizzle row: the 128-byte swizzle at D = 64, the 64-byte one at D = 32),
+//   with full/empty mbarriers per stage, K and V apart so that S can start
+//   before V has landed. One or three consumer warpgroups own 64 query rows
+//   each. S = Q K^T is wgmma m64n128k16 (D / 16 steps) with both operands in
+//   shared memory (K as it lies, K-major); the f32 accumulator of S, rounded to
+//   bf16, is the A fragment of O += P V (m64nDk16, A from registers), whose B
+//   is the V tile as it lies, read MN-major through the descriptor, so nothing
+//   is transposed or copied. Schedule per warpgroup: S of tile j and P V of
+//   tile j-1 are issued together, then the softmax of tile j. The three
+//   warpgroups of a block issue in turn (named barriers), so one runs its
+//   exponentials while another's products are in the tensor cores; three, not
+//   two, because with 12 consumer warps each scheduler has three instruction
+//   streams to fill its issue slots from. They get 160 registers each (64 S +
+//   32 O + 32 P), the producer gives its own up (setmaxnreg 24 / 160).
+//   A launch is a list of (head, query block) units, 192 rows (the last of a
+//   head may reach past T and stores only its own rows), 128 rows (the third
+//   warpgroup leaves at once; the wrapper gives the last heads such blocks so
+//   that the last wave is short) or 64. Three schedules walk it:
+//   - one block a unit (the grid);
+//   - persistent: at most one block an SM, each walking the units round-robin
+//     (no counter: nothing to reset inside a CUDA graph, the order fixed); the
+//     producer loads the next unit's Q into a second buffer and its first K/V
+//     tiles while the consumers finish the current unit, so the prologue is
+//     paid once an SM and the tail is one unit long;
+//   - a key split where the units are fewer than the SMs: a cluster of 2 or 4
+//     blocks a unit, each on its share of the keys with its own running max;
+//     blocks 1.. write their unnormalised f32 O, max and row sums into block
+//     0's shared memory (distributed shared memory, one mbarrier), and block 0
+//     rescales them to the common max, adds them in split order (no float
+//     atomics, the same bits every run, one launch) and does the late divide.
+//   Measured on an H100 SXM at 700 W: 0.267 ms at [32, 4096, 64] (the mma.sync
+//   kernel before it: 0.666 ms), 0.43 ms at [64, 4096, 32] (mma.sync: 0.80 ms;
+//   the exponentials' limit there is 0.26 ms). History, method and the times
+//   of every plan at the launched shapes: PERF.md section 6.
+// * mma.sync (bf16, D = 32 or 64 with T a multiple of 64 but not of 128): the
+//   first port's kernel, 4 warps on 64 queries, 64-key tiles, m16n8k16. No
+//   served path launches it.
 // * SIMT f32 (f32 inputs, so an f32 engine gets f32 attention, no TF32): 128
 //   threads on 32 queries, each thread a 4 x 4 register tile of S, 64-key K/V
 //   tiles double-buffered with cp.async, P handed to the second product through
@@ -86,15 +103,30 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// ------------------------------------------------ wgmma variant (bf16, D = 64)
+// ------------------------------------------- wgmma variant (bf16, D = 32 | 64)
 
-constexpr int kHeadDim = 64;                       // one row = 128 bytes = one swizzle row
-constexpr int kWgRows = 64;                        // query rows per consumer warpgroup
-constexpr int kTileKeys = 128;                     // keys per K/V stage
+constexpr int kWgRows = 64;        // query rows per consumer warpgroup
+constexpr int kTileKeys = 128;     // keys per K/V stage
 constexpr int kMaxStages = 4;
-constexpr int kQBytes = kWgRows * kHeadDim * 2;    // 8 KB per warpgroup
-constexpr int kTileBytes = kTileKeys * kHeadDim * 2;  // 16 KB
-constexpr int kSmemAlign = 1024;                   // the swizzle pattern repeats every 8 rows
+constexpr int kMaxSplits = 4;      // blocks of a cluster that share out the keys
+constexpr int kSmemAlign = 1024;   // the 128-byte swizzle pattern repeats every 8 rows
+
+// The tiles of one head dimension. A row of D bf16 is one swizzle row: 128
+// bytes at D = 64 (128-byte swizzle), 64 bytes at D = 32 (64-byte swizzle);
+// 8-row core-matrix groups lie 8 rows apart either way.
+template <int D>
+struct Tiles {
+  static_assert(D == 32 || D == 64, "head dim 32 or 64");
+  static constexpr int kRowBytes = D * 2;
+  static constexpr int kGroupBytes = 8 * kRowBytes;         // 1024 or 512
+  static constexpr int kQBytes = kWgRows * kRowBytes;       // per warpgroup: 8 or 4 KB
+  static constexpr int kTileBytes = kTileKeys * kRowBytes;  // 16 or 8 KB
+  static constexpr uint64_t kSwizzleMode = D == 64 ? 1 : 2;  // the descriptor's code: 128 B, 64 B
+  static constexpr int kAccRegs = D / 2;                    // f32 registers of O per thread
+  // what a split hands to the cluster's first block, per consumer thread:
+  // its O accumulator, the running max and its share of the row sums (rows g, g+8)
+  static constexpr int kCombineFloats = kAccRegs + 4;
+};
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -125,6 +157,57 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// The same, acquiring at cluster scope what other blocks of the cluster
+// released when they arrived.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- thread-block clusters: the blocks of one unit's key split
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of the same shared-memory byte in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t remote_bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote_bar)
+               : "memory");
+}
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // Where a tile lies in the ring: tile j is in stage j % stages, and its
 // barriers are in the phase of parity (j / stages) & 1. Kept by counting, so
 // that the loops divide by nothing.
@@ -139,7 +222,7 @@ struct RingSlot {
   }
 };
 
-// One [rows, 64] bf16 box at (column 0, row) of a 2-D tensor map into shared memory.
+// One [rows, D] bf16 box at (column 0, row) of a 2-D tensor map into shared memory.
 __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                               int row) {
   asm volatile(
@@ -149,15 +232,16 @@ __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* m
       : "memory");
 }
 
-// Shared-memory matrix descriptor of a tile whose rows are 128 bytes, swizzled
-// by 128 bytes: 8-row groups lie 1024 bytes apart (the stride offset). The
-// leading offset is not read when the tile is one swizzle row wide; it is set
-// to the same 1024 bytes.
+// Shared-memory matrix descriptor of a tile whose rows are one swizzle row
+// (128 bytes at D = 64, 64 at D = 32) and swizzled by that width: 8-row groups
+// lie kGroupBytes apart (the stride offset). The leading offset is not read
+// when the tile is one swizzle row wide; it is set to the same value.
+template <int D>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   uint64_t d = static_cast<uint64_t>((addr & 0x3FFFFu) >> 4);
-  d |= static_cast<uint64_t>(1024 >> 4) << 16;
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;
-  d |= static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
+  d |= static_cast<uint64_t>(Tiles<D>::kGroupBytes >> 4) << 16;
+  d |= static_cast<uint64_t>(Tiles<D>::kGroupBytes >> 4) << 32;
+  d |= Tiles<D>::kSwizzleMode << 62;
   return d;
 }
 
@@ -230,24 +314,44 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// S = Q K^T over D = 64: four k-steps of 16, each 32 bytes further along the
+// d[64 x 32] += A[64 x 16] B[16 x 32], the same at D = 32.
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// S = Q K^T over D: D / 16 k-steps of 16, each 32 bytes further along the
 // swizzled row (2 in the descriptor's 16-byte units).
+template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t desc_q, uint64_t desc_k) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) reg_fence(s[i]);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     wgmma_m64n128k16_ss(s, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
   }
   wgmma_commit();
 }
 
-// O += P V over 128 keys: eight k-steps of 16 keys, each 16 rows (2048 bytes)
-// further down the V tile.
-__device__ __forceinline__ void issue_pv(float (&o)[32], uint32_t (&p)[8][4], uint64_t desc_v) {
+// O += P V over 128 keys: eight k-steps of 16 keys, each 16 rows (16 * 2D
+// bytes, 2D in the descriptor's units) further down the V tile.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], uint32_t (&p)[8][4], uint64_t desc_v) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) reg_fence(o[i]);
+  for (int i = 0; i < D / 2; ++i) reg_fence(o[i]);
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
 #pragma unroll
@@ -256,7 +360,11 @@ __device__ __forceinline__ void issue_pv(float (&o)[32], uint32_t (&p)[8][4], ui
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kTileKeys / 16; ++kk) {
-    wgmma_m64n64k16_rs(o, p[kk], desc_v + (16 * 128 / 16) * kk);
+    if constexpr (D == 64) {
+      wgmma_m64n64k16_rs(o, p[kk], desc_v + 2 * D * kk);
+    } else {
+      wgmma_m64n32k16_rs(o, p[kk], desc_v + 2 * D * kk);
+    }
   }
   wgmma_commit();
 }
@@ -331,75 +439,169 @@ __device__ __forceinline__ void pack_probabilities(uint32_t (&p)[8][4], const fl
   }
 }
 
+// n / d for 0 <= n < 2^31 by a multiply-high and a shift, with d's multiplier
+// ceil(2^(31 + l) / d), l = ceil(log2 d), worked out on the host: a block
+// decodes its first unit ahead of its first load, and a division by a value
+// known only at run time is a few dozen instructions there.
+struct FastDiv {
+  int d;
+  uint32_t mul, shr;
+  explicit FastDiv(int d_) : d(d_), mul(0), shr(0) {
+    if (d > 1) {
+      uint32_t l = 0;
+      while ((1u << l) < static_cast<uint32_t>(d)) ++l;
+      mul = static_cast<uint32_t>(((1ull << (31 + l)) + d - 1) / d);
+      shr = l - 1;
+    }
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return d == 1 ? n : static_cast<int>(__umulhi(static_cast<uint32_t>(n), mul) >> shr);
+  }
+};
+
+// The query blocks of a launch, as one list of units in the order the blocks
+// take them: the first full_heads heads are cut into blocks of kConsumers * 64
+// rows (the last may reach past T), the other heads into blocks of one
+// warpgroup fewer (the wrapper mixes the two so that the last wave is short).
+// Made on the host and passed to the kernel.
+template <int kConsumers>
+struct Units {
+  int full_heads, full_units, count;
+  FastDiv per_full, per_small;  // units a head: full ones, smaller ones
+  Units(int nh, int t, int full_heads_)
+      : full_heads(full_heads_),
+        full_units(0),
+        count(0),
+        per_full((t + kConsumers * kWgRows - 1) / (kConsumers * kWgRows)),
+        per_small(kConsumers > 1 ? t / ((kConsumers > 1 ? kConsumers - 1 : 1) * kWgRows) : 1) {
+    full_units = full_heads * per_full.d;
+    count = full_units + (kConsumers > 1 ? (nh - full_heads) * per_small.d : 0);
+  }
+  // the head, the first query row in it and the warpgroups that work on unit u
+  __device__ __forceinline__ void decode(int u, int& head, int& row, int& active) const {
+    if (u < full_units) {
+      head = per_full.div(u);
+      row = (u - head * per_full.d) * (kConsumers * kWgRows);
+      active = kConsumers;
+    } else {
+      const int v = u - full_units;
+      const int i = per_small.div(v);
+      head = full_heads + i;
+      row = (v - i * per_small.d) * ((kConsumers - 1) * kWgRows);
+      active = kConsumers - 1;
+    }
+  }
+};
+
 // Accumulator layout of wgmma m64nN (PTX ISA): warp w of the warpgroup owns
 // rows 16w .. 16w+15; with g = lane / 4 and c = lane % 4, registers 4j, 4j+1
 // hold (row g, columns 8j + 2c, +1) and 4j+2, 4j+3 hold (row g + 8, same
 // columns). The A fragment of a 16-deep step from registers is (row g | g+8,
 // columns 2c, 2c+1 | +8), so the accumulator of two neighbouring 8-key chunks,
 // rounded to bf16, is exactly the A fragment of one 16-key step of P V.
-template <int kConsumers>
+//
+// Schedules: one block a unit (kGrid), a persistent grid (kPersistent), a key
+// split over clusters (kSplit); each its own instantiation, so that the grid's
+// code is one unit's straight line with no unit loop or combine around it.
+constexpr int kGrid = 0, kPersistent = 1, kSplit = 2;
+
+// The grid is gridDim.x / splits clusters of `splits` blocks each. Cluster c
+// walks units c, c + clusters, c + 2 clusters, ... (a persistent grid when
+// clusters < n_units: the producer loads the next unit's Q, into the other of
+// q_buffers = 2 buffers, and its first K/V tiles while the consumers finish
+// the current unit). Block r of a cluster takes the r-th of `splits` equal
+// shares of the keys; with splits > 1 the others hand their partial O, max
+// and row sums to block 0 through distributed shared memory, and block 0
+// combines them in order 0, 1, ... and stores O (one unit per cluster then).
+template <int kConsumers, int D, int kSchedule>
 __global__ void __launch_bounds__((kConsumers + 1) * 128, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o, int t,
-                    int stages, int full_heads, float scale_log2) {
-  // Blocks of the heads below full_heads run all kConsumers warpgroups on
-  // 64 * kConsumers query rows, blocks of the later heads one warpgroup fewer
-  // (the wrapper mixes the two so that the last wave of blocks is short). The
-  // grid is sized for the smaller block; what it has too many of ends here.
-  const int active = (kConsumers > 1 && static_cast<int>(blockIdx.y) >= full_heads) ? kConsumers - 1
-                                                                                   : kConsumers;
-  const int block_row = blockIdx.x * (active * kWgRows);  // first query row of the block in its head
-  if (block_row >= t) return;
+                    int stages, const Units<kConsumers> units, int split_count, int q_buffers,
+                    float scale_log2) {
+  using Tl = Tiles<D>;
+  constexpr int F = Tl::kCombineFloats;
+  const int splits = kSchedule == kSplit ? split_count : 1;  // a constant outside the split's kernel
+  const int n_units = units.count;
+  const int clusters = gridDim.x / splits;
+  const int first_unit = blockIdx.x / splits;
+  const uint32_t rank = kSchedule == kSplit ? cluster_rank() : 0;
+  const int n_tiles = t / kTileKeys / splits;  // this block's share of the keys
+  const int first_key = static_cast<int>(rank) * n_tiles * kTileKeys;
 
   extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t bar_q, bar_full_k[kMaxStages], bar_full_v[kMaxStages],
-      bar_empty_k[kMaxStages], bar_empty_v[kMaxStages];
+  __shared__ uint64_t bar_q_full[2], bar_q_empty[2], bar_full_k[kMaxStages], bar_full_v[kMaxStages],
+      bar_empty_k[kMaxStages], bar_empty_v[kMaxStages], bar_combine;
 
-  // [Q: kConsumers x 8 KB][K stages x 16 KB][V stages x 16 KB], 1024-aligned
+  // [Q: q_buffers x kConsumers x kQBytes][K: stages][V: stages]
+  // [the splits' partials: (splits - 1) x kConsumers x F x 128 floats], 1024-aligned
   const uint32_t base = (smem_u32(smem_raw) + kSmemAlign - 1) & ~static_cast<uint32_t>(kSmemAlign - 1);
   const uint32_t q_smem = base;
-  const uint32_t k_smem = q_smem + kConsumers * kQBytes;
-  const uint32_t v_smem = k_smem + stages * kTileBytes;
+  const uint32_t k_smem = q_smem + q_buffers * kConsumers * Tl::kQBytes;
+  const uint32_t v_smem = k_smem + stages * Tl::kTileBytes;
+  const uint32_t combine_smem = v_smem + stages * Tl::kTileBytes;
+
+  // every unit of a block has the same warpgroups (the wrapper makes the
+  // units of a persistent grid alike)
+  int head, block_row, active;
+  units.decode(first_unit, head, block_row, active);
 
   if (threadIdx.x == 0) {
-    mbar_init(smem_u32(&bar_q), 1);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(smem_u32(&bar_q_full[b]), 1);
+      mbar_init(smem_u32(&bar_q_empty[b]), active * 4);  // one arrival per consumer warp
+    }
     for (int s = 0; s < kMaxStages; ++s) {
       mbar_init(smem_u32(&bar_full_k[s]), 1);
       mbar_init(smem_u32(&bar_full_v[s]), 1);
-      mbar_init(smem_u32(&bar_empty_k[s]), active * 4);  // one arrival per consumer warp
+      mbar_init(smem_u32(&bar_empty_k[s]), active * 4);
       mbar_init(smem_u32(&bar_empty_v[s]), active * 4);
     }
+    // one arrival per consumer thread of every other block of the cluster
+    mbar_init(smem_u32(&bar_combine), splits > 1 ? (splits - 1) * active * 128 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  __syncthreads();
+  // block 0's barriers are initialised before another block of its cluster arrives on them
+  if constexpr (kSchedule == kSplit) {
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
 
   const int wg = threadIdx.x >> 7;
   if (wg < kConsumers && wg >= active) return;  // the warpgroup a smaller block leaves out
-  const int n_tiles = t / kTileKeys;
-  const int head_row = blockIdx.y * t;                       // first row of this (batch * head)
-  const int q_row = head_row + block_row;
 
   if (wg == kConsumers) {
     // ------------------------------------------------------------ producer
     if constexpr (kConsumers == 3) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(smem_u32(&bar_q), active * kQBytes);
-      for (int w = 0; w < active; ++w) {
-        tma_load_rows(q_smem + w * kQBytes, &map_q, smem_u32(&bar_q), q_row + w * kWgRows);
-      }
-      RingSlot slot;  // of tile j; a slot is free once its tile of the round before was used
-      for (int j = 0; j < n_tiles; ++j, slot.advance(stages)) {
-        const int s = slot.stage;
-        if (j >= stages) mbar_wait(smem_u32(&bar_empty_k[s]), slot.parity ^ 1);
-        mbar_expect_tx(smem_u32(&bar_full_k[s]), kTileBytes);
-        tma_load_rows(k_smem + s * kTileBytes, &map_k, smem_u32(&bar_full_k[s]),
-                      head_row + j * kTileKeys);
-        if (j >= stages) mbar_wait(smem_u32(&bar_empty_v[s]), slot.parity ^ 1);
-        mbar_expect_tx(smem_u32(&bar_full_v[s]), kTileBytes);
-        tma_load_rows(v_smem + s * kTileBytes, &map_v, smem_u32(&bar_full_v[s]),
-                      head_row + j * kTileKeys);
+      RingSlot slot;  // of the g-th tile this block loads; a slot is free once its tile of the round before was used
+      int g = 0;
+      int i = 0;  // the i-th unit of this block
+      for (int u = first_unit; u < n_units; u += clusters, ++i) {
+        int unit_head, unit_row, unit_active;
+        units.decode(u, unit_head, unit_row, unit_active);
+        const int head_row = unit_head * t;  // first row of this (batch * head)
+        const int qb = kSchedule == kPersistent ? (i & 1) : 0;
+        if (kSchedule == kPersistent && i >= 2) mbar_wait(smem_u32(&bar_q_empty[qb]), ((i >> 1) - 1) & 1);
+        mbar_expect_tx(smem_u32(&bar_q_full[qb]), unit_active * Tl::kQBytes);
+        for (int w = 0; w < unit_active; ++w) {
+          tma_load_rows(q_smem + (qb * kConsumers + w) * Tl::kQBytes, &map_q, smem_u32(&bar_q_full[qb]),
+                        head_row + unit_row + w * kWgRows);
+        }
+        for (int j = 0; j < n_tiles; ++j, ++g, slot.advance(stages)) {
+          const int s = slot.stage;
+          const int key_row = head_row + first_key + j * kTileKeys;
+          if (g >= stages) mbar_wait(smem_u32(&bar_empty_k[s]), slot.parity ^ 1);
+          mbar_expect_tx(smem_u32(&bar_full_k[s]), Tl::kTileBytes);
+          tma_load_rows(k_smem + s * Tl::kTileBytes, &map_k, smem_u32(&bar_full_k[s]), key_row);
+          if (g >= stages) mbar_wait(smem_u32(&bar_empty_v[s]), slot.parity ^ 1);
+          mbar_expect_tx(smem_u32(&bar_full_v[s]), Tl::kTileBytes);
+          tma_load_rows(v_smem + s * Tl::kTileBytes, &map_v, smem_u32(&bar_full_v[s]), key_row);
+        }
+        if constexpr (kSchedule != kPersistent) break;  // one unit a block
       }
     }
   } else {
@@ -409,50 +611,19 @@ __global__ void __launch_bounds__((kConsumers + 1) * 128, 1)
     const int warp = (threadIdx.x & 127) >> 5;
     const int g = lane >> 2;
     const int c = lane & 3;
-    const uint64_t desc_q = smem_desc(q_smem + wg * kQBytes);
-
-    float s[64];
-    float acc[32];
-    uint32_t p[8][4];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of the raw logits, rows g, g+8
-    float l_lo = 0.f, l_hi = 0.f;              // this thread's share of the row sums
-    float alpha_lo, alpha_hi;
 
     auto release = [&](uint64_t* bar) {  // every warp of every consumer warpgroup arrives once
       __syncwarp();
       if (lane == 0) mbar_arrive(smem_u32(bar));
     };
     // a stage further on is kTileBytes >> 4 more in a descriptor's address field
-    const uint64_t desc_k0 = smem_desc(k_smem), desc_v0 = smem_desc(v_smem);
-    auto issue_s = [&](const RingSlot& slot) {  // S of a tile, when its K has landed
-      mbar_wait(smem_u32(&bar_full_k[slot.stage]), slot.parity);
-      issue_qk(s, desc_q, desc_k0 + slot.stage * (kTileBytes >> 4));
-    };
-    auto issue_o = [&](const RingSlot& slot) {  // O += P V of a tile, when its V has landed
-      mbar_wait(smem_u32(&bar_full_v[slot.stage]), slot.parity);
-      issue_pv(acc, p, desc_v0 + slot.stage * (kTileBytes >> 4));
-    };
-
-    // Tile 0 alone: S, softmax, P. Every later round issues S of tile j and
-    // P V of tile j-1 together and waits for both before it ends, so that no
-    // product is in flight across the loop's back edge (ptxas serialises the
-    // wgmmas of a loop that carries one over).
-    RingSlot slot, prev;  // of tile j and of tile j-1
-    mbar_wait(smem_u32(&bar_q), 0);
-    issue_s(slot);
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < 64; ++i) reg_fence(s[i]);
-    release(&bar_empty_k[0]);
-    softmax_tile(s, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, scale_log2);
-    pack_probabilities(p, s);
+    const uint64_t desc_k0 = smem_desc<D>(k_smem), desc_v0 = smem_desc<D>(v_smem);
 
     // The warpgroups issue their products in turn (named barrier 1 + wg is
     // the turn of warpgroup wg, passed on as soon as the products are issued),
     // so that they stay a third of a round apart: while one waits for its S
-    // and the tensor cores work, the others run their exponentials.
+    // and the tensor cores work, the others run their exponentials. The turn
+    // passes on across units: every warpgroup takes as many turns a unit.
     auto turn_wait = [&]() {
       if (kConsumers > 1) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
     };
@@ -461,69 +632,171 @@ __global__ void __launch_bounds__((kConsumers + 1) * 128, 1)
       if (kConsumers > 1) asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + next_wg) : "memory");
     };
     if (kConsumers > 1 && wg == active - 1) asm volatile("bar.arrive %0, 256;\n" ::"r"(1) : "memory");
-    for (int j = 1; j < n_tiles; ++j) {
-      prev = slot;
-      slot.advance(stages);
-      turn_wait();
+
+    RingSlot slot, prev;  // of tile j and of tile j-1, counted across units
+    int i = 0;
+    for (int u = first_unit; u < n_units; u += clusters, ++i) {
+      units.decode(u, head, block_row, active);
+      const int qb = kSchedule == kPersistent ? (i & 1) : 0;
+      const uint64_t desc_q = smem_desc<D>(q_smem + (qb * kConsumers + wg) * Tl::kQBytes);
+
+      float s[64];
+      float acc[Tl::kAccRegs];
+      uint32_t p[8][4];
+#pragma unroll
+      for (int r = 0; r < Tl::kAccRegs; ++r) acc[r] = 0.f;
+      float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of the raw logits, rows g, g+8
+      float l_lo = 0.f, l_hi = 0.f;              // this thread's share of the row sums
+      float alpha_lo, alpha_hi;
+
+      auto issue_s = [&](const RingSlot& sl) {  // S of a tile, when its K has landed
+        mbar_wait(smem_u32(&bar_full_k[sl.stage]), sl.parity);
+        issue_qk<D>(s, desc_q, desc_k0 + sl.stage * (Tl::kTileBytes >> 4));
+      };
+      auto issue_o = [&](const RingSlot& sl) {  // O += P V of a tile, when its V has landed
+        mbar_wait(smem_u32(&bar_full_v[sl.stage]), sl.parity);
+        issue_pv<D>(acc, p, desc_v0 + sl.stage * (Tl::kTileBytes >> 4));
+      };
+
+      // Tile 0 alone: S, softmax, P. Every later round issues S of tile j and
+      // P V of tile j-1 together and waits for both before it ends, so that no
+      // product is in flight across the loop's back edge (ptxas serialises the
+      // wgmmas of a loop that carries one over).
+      mbar_wait(smem_u32(&bar_q_full[qb]), (i >> 1) & 1);
       issue_s(slot);
-      issue_o(prev);
-      turn_pass();
-      wgmma_wait<1>();  // S of tile j is complete; P V of tile j-1 may still run
+      wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < 64; ++i) reg_fence(s[i]);
+      for (int r = 0; r < 64; ++r) reg_fence(s[r]);
       release(&bar_empty_k[slot.stage]);
-
       softmax_tile(s, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, scale_log2);
-
-      wgmma_wait<0>();  // P V of tile j-1 is complete: acc and p are ours again
-#pragma unroll
-      for (int i = 0; i < 32; ++i) reg_fence(acc[i]);
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) reg_fence(p[kk][i]);
-      }
-      release(&bar_empty_v[prev.stage]);
-#pragma unroll
-      for (int dn = 0; dn < 8; ++dn) {
-        acc[4 * dn] *= alpha_lo;
-        acc[4 * dn + 1] *= alpha_lo;
-        acc[4 * dn + 2] *= alpha_hi;
-        acc[4 * dn + 3] *= alpha_hi;
-      }
       pack_probabilities(p, s);
-    }
-    // the last tile's P V
-    issue_o(slot);
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < 32; ++i) reg_fence(acc[i]);
 
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-    const float inv_lo = 1.f / l_lo;
-    const float inv_hi = 1.f / l_hi;
-
-    // the last block of a head may reach past it (T need not divide by the
-    // block's rows): those rows were computed on whatever the load brought and
-    // are not stored
-    const int row_in_head = block_row + wg * kWgRows + warp * 16 + g;
-    const size_t row = static_cast<size_t>(head_row) + row_in_head;
-    __nv_bfloat16* o_lo = o + row * kHeadDim + 2 * c;
-    __nv_bfloat16* o_hi = o_lo + 8 * kHeadDim;
-    const bool lo_in = row_in_head < t, hi_in = row_in_head + 8 < t;
+      for (int j = 1; j < n_tiles; ++j) {
+        prev = slot;
+        slot.advance(stages);
+        turn_wait();
+        issue_s(slot);
+        issue_o(prev);
+        turn_pass();
+        wgmma_wait<1>();  // S of tile j is complete; P V of tile j-1 may still run
 #pragma unroll
-    for (int dn = 0; dn < 8; ++dn) {
-      if (lo_in) {
-        *reinterpret_cast<uint32_t*>(o_lo + 8 * dn) =
-            pack_bf16x2(acc[4 * dn] * inv_lo, acc[4 * dn + 1] * inv_lo);
+        for (int r = 0; r < 64; ++r) reg_fence(s[r]);
+        release(&bar_empty_k[slot.stage]);
+
+        softmax_tile(s, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, scale_log2);
+
+        wgmma_wait<0>();  // P V of tile j-1 is complete: acc and p are ours again
+#pragma unroll
+        for (int r = 0; r < Tl::kAccRegs; ++r) reg_fence(acc[r]);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) reg_fence(p[kk][r]);
+        }
+        release(&bar_empty_v[prev.stage]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          acc[4 * dn] *= alpha_lo;
+          acc[4 * dn + 1] *= alpha_lo;
+          acc[4 * dn + 2] *= alpha_hi;
+          acc[4 * dn + 3] *= alpha_hi;
+        }
+        pack_probabilities(p, s);
       }
-      if (hi_in) {
-        *reinterpret_cast<uint32_t*>(o_hi + 8 * dn) =
-            pack_bf16x2(acc[4 * dn + 2] * inv_hi, acc[4 * dn + 3] * inv_hi);
+      // the last tile's P V
+      issue_o(slot);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int r = 0; r < Tl::kAccRegs; ++r) reg_fence(acc[r]);
+      if constexpr (kSchedule == kPersistent) {
+        // Q and the last V are free; the producer has the next unit's Q in the
+        // other buffer already (a release inside the tile loop costs the 4096-key
+        // units a few per cent)
+        release(&bar_q_empty[qb]);
+        release(&bar_empty_v[slot.stage]);
+        slot.advance(stages);  // where the next unit's first tile lands
       }
+
+      if constexpr (kSchedule == kSplit) {
+        // Thread x of warpgroup w holds the same rows and columns in every
+        // block of the cluster: partial f of split r lies at float
+        // ((r - 1) * kConsumers + w) * F * 128 + f * 128 + x of block 0's region.
+        const int x = threadIdx.x & 127;
+        const uint32_t mine = combine_smem + 4u * static_cast<uint32_t>(wg * F * 128 + x);
+        constexpr uint32_t kSplitStride = 4u * kConsumers * F * 128;
+        if (rank != 0) {
+          const uint32_t dst = cluster_map(mine + (rank - 1) * kSplitStride, 0);
+#pragma unroll
+          for (int f = 0; f < Tl::kAccRegs; ++f) st_cluster_f32(dst + 4u * f * 128, acc[f]);
+          st_cluster_f32(dst + 4u * (Tl::kAccRegs + 0) * 128, m_lo);
+          st_cluster_f32(dst + 4u * (Tl::kAccRegs + 1) * 128, m_hi);
+          st_cluster_f32(dst + 4u * (Tl::kAccRegs + 2) * 128, l_lo);
+          st_cluster_f32(dst + 4u * (Tl::kAccRegs + 3) * 128, l_hi);
+          mbar_arrive_cluster(cluster_map(smem_u32(&bar_combine), 0));
+          continue;  // block 0 stores the unit
+        }
+        mbar_wait_cluster(smem_u32(&bar_combine), 0);
+        // the common max, then each split's share rescaled to it, in split order
+        float mx_lo = m_lo, mx_hi = m_hi;
+        for (int r = 1; r < splits; ++r) {
+          const uint32_t part = mine + (r - 1) * kSplitStride;
+          mx_lo = fmaxf(mx_lo, ld_shared_f32(part + 4u * (Tl::kAccRegs + 0) * 128));
+          mx_hi = fmaxf(mx_hi, ld_shared_f32(part + 4u * (Tl::kAccRegs + 1) * 128));
+        }
+        const float w_lo = fast_exp2((m_lo - mx_lo) * scale_log2);
+        const float w_hi = fast_exp2((m_hi - mx_hi) * scale_log2);
+        l_lo *= w_lo;
+        l_hi *= w_hi;
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          acc[4 * dn] *= w_lo;
+          acc[4 * dn + 1] *= w_lo;
+          acc[4 * dn + 2] *= w_hi;
+          acc[4 * dn + 3] *= w_hi;
+        }
+        for (int r = 1; r < splits; ++r) {
+          const uint32_t part = mine + (r - 1) * kSplitStride;
+          const float wr_lo = fast_exp2((ld_shared_f32(part + 4u * (Tl::kAccRegs + 0) * 128) - mx_lo) * scale_log2);
+          const float wr_hi = fast_exp2((ld_shared_f32(part + 4u * (Tl::kAccRegs + 1) * 128) - mx_hi) * scale_log2);
+          l_lo = fmaf(ld_shared_f32(part + 4u * (Tl::kAccRegs + 2) * 128), wr_lo, l_lo);
+          l_hi = fmaf(ld_shared_f32(part + 4u * (Tl::kAccRegs + 3) * 128), wr_hi, l_hi);
+#pragma unroll
+          for (int dn = 0; dn < D / 8; ++dn) {
+            acc[4 * dn] = fmaf(ld_shared_f32(part + 4u * (4 * dn) * 128), wr_lo, acc[4 * dn]);
+            acc[4 * dn + 1] = fmaf(ld_shared_f32(part + 4u * (4 * dn + 1) * 128), wr_lo, acc[4 * dn + 1]);
+            acc[4 * dn + 2] = fmaf(ld_shared_f32(part + 4u * (4 * dn + 2) * 128), wr_hi, acc[4 * dn + 2]);
+            acc[4 * dn + 3] = fmaf(ld_shared_f32(part + 4u * (4 * dn + 3) * 128), wr_hi, acc[4 * dn + 3]);
+          }
+        }
+      }
+
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+      const float inv_lo = 1.f / l_lo;
+      const float inv_hi = 1.f / l_hi;
+
+      // the last block of a head may reach past it (T need not divide by the
+      // block's rows): those rows were computed on whatever the load brought and
+      // are not stored
+      const int row_in_head = block_row + wg * kWgRows + warp * 16 + g;
+      const size_t row = static_cast<size_t>(head) * t + row_in_head;
+      __nv_bfloat16* o_lo = o + row * D + 2 * c;
+      __nv_bfloat16* o_hi = o_lo + 8 * D;
+      const bool lo_in = row_in_head < t, hi_in = row_in_head + 8 < t;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        if (lo_in) {
+          *reinterpret_cast<uint32_t*>(o_lo + 8 * dn) =
+              pack_bf16x2(acc[4 * dn] * inv_lo, acc[4 * dn + 1] * inv_lo);
+        }
+        if (hi_in) {
+          *reinterpret_cast<uint32_t*>(o_hi + 8 * dn) =
+              pack_bf16x2(acc[4 * dn + 2] * inv_hi, acc[4 * dn + 3] * inv_hi);
+        }
+      }
+      if constexpr (kSchedule != kPersistent) break;  // one unit a block
     }
   }
 }
@@ -893,45 +1166,80 @@ EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A [rows, 64] bf16 matrix as a 2-D tensor map with boxes of box_rows rows,
-// written to shared memory with the 128-byte swizzle.
+// A [rows, D] bf16 matrix as a 2-D tensor map with boxes of box_rows rows,
+// written to shared memory with the swizzle of one D-wide row (128 or 64 bytes).
+template <int D>
 CUresult encode_rows(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, uint64_t rows,
                      uint32_t box_rows) {
-  const cuuint64_t dims[2] = {kHeadDim, rows};
-  const cuuint64_t strides[1] = {kHeadDim * 2};
-  const cuuint32_t box[2] = {kHeadDim, box_rows};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), rows};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(D), box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int kConsumers>
+// grid_units clusters of `splits` blocks walk the launch's units (a persistent
+// grid when fewer than the units; their units must then be alike and the keys
+// unsplit). The plan's stages, full_heads and smem_bytes are checked, not trusted.
+template <int kConsumers, int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int nh, int t, int stages,
-                 int full_heads, int smem_bytes, float scale_log2, cudaStream_t stream) {
-  if (t % kTileKeys != 0 || stages < 1 || stages > kMaxStages || (stages < 2 && t > kTileKeys) ||
+                 int full_heads, int grid_units, int splits, int smem_bytes, float scale_log2,
+                 cudaStream_t stream) {
+  using Tl = Tiles<D>;
+  const int key_tiles = t / kTileKeys;
+  if (t % kTileKeys != 0 || splits < 1 || splits > kMaxSplits || key_tiles % splits != 0 ||
       full_heads < 0 || full_heads > nh || (kConsumers == 1 && full_heads != nh)) {
     return cudaErrorInvalidValue;
   }
-  // the grid covers the heads that need the most blocks
-  const int rows = (full_heads < nh ? kConsumers - 1 : kConsumers) * kWgRows;
-  if (smem_bytes != kSmemAlign + kConsumers * kQBytes + 2 * stages * kTileBytes) {
-    return cudaErrorInvalidValue;
-  }
+  const int n_tiles = key_tiles / splits;
+  if (stages < 1 || stages > kMaxStages || (stages < 2 && n_tiles > 1)) return cudaErrorInvalidValue;
+  const Units<kConsumers> units(nh, t, full_heads);
+  const int n_units = units.count;
+  if (grid_units < 1 || grid_units > n_units) return cudaErrorInvalidValue;
+  const bool persistent = grid_units < n_units;
+  if (persistent && (splits != 1 || (full_heads != nh && full_heads != 0))) return cudaErrorInvalidValue;
+  const int q_buffers = persistent ? 2 : 1;
+  const int need = kSmemAlign + q_buffers * kConsumers * Tl::kQBytes + 2 * stages * Tl::kTileBytes +
+                   (splits - 1) * kConsumers * Tl::kCombineFloats * 128 * 4;
+  if (smem_bytes != need) return cudaErrorInvalidValue;
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   CUtensorMap map_q, map_k, map_v;
   const uint64_t all_rows = static_cast<uint64_t>(nh) * t;
-  CUresult res = encode_rows(fn, &map_q, q, all_rows, kWgRows);
-  if (res == CUDA_SUCCESS) res = encode_rows(fn, &map_k, k, all_rows, kTileKeys);
-  if (res == CUDA_SUCCESS) res = encode_rows(fn, &map_v, v, all_rows, kTileKeys);
+  CUresult res = encode_rows<D>(fn, &map_q, q, all_rows, kWgRows);
+  if (res == CUDA_SUCCESS) res = encode_rows<D>(fn, &map_k, k, all_rows, kTileKeys);
+  if (res == CUDA_SUCCESS) res = encode_rows<D>(fn, &map_v, v, all_rows, kTileKeys);
   if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
-  auto kernel = flash_fwd_wgmma<kConsumers>;
+  auto kernel = splits > 1 ? flash_fwd_wgmma<kConsumers, D, kSplit>
+                : persistent ? flash_fwd_wgmma<kConsumers, D, kPersistent>
+                             : flash_fwd_wgmma<kConsumers, D, kGrid>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((t + rows - 1) / rows, nh), (kConsumers + 1) * 128, smem_bytes, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), t, stages, full_heads, scale_log2);
+  auto* ob = static_cast<__nv_bfloat16*>(o);
+  if (splits == 1) {
+    kernel<<<grid_units, (kConsumers + 1) * 128, smem_bytes, stream>>>(
+        map_q, map_k, map_v, ob, t, stages, units, 1, q_buffers, scale_log2);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid_units * splits);
+  config.blockDim = dim3((kConsumers + 1) * 128);
+  config.dynamicSmemBytes = smem_bytes;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, map_q, map_k, map_v, ob, t, stages, units, splits,
+                           q_buffers, scale_log2);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -952,26 +1260,41 @@ int launch_f32(const float* q, const float* k, const float* v, float* o, int nh,
 }  // namespace
 
 // variant: 0 mma.sync bf16, 1 wgmma with one consumer warpgroup (64 queries a
-// block), 2 wgmma with three (192 queries a block for the first full_heads
-// heads, 128 with two of the three for the rest), 3 SIMT f32. stages,
-// full_heads and smem_bytes are the wrapper's launch plan; they are checked,
-// not trusted.
+// unit), 2 wgmma with three (192 queries a unit for the first full_heads
+// heads, 128 with two of the three for the rest), 3 SIMT f32. grid_units is
+// the number of clusters that walk the wgmma kernel's units, splits the blocks
+// of a cluster (the key split); the other variants take one block per query
+// block and no split. stages, full_heads, grid_units, splits and smem_bytes
+// are the wrapper's launch plan; they are checked, not trusted.
 extern "C" int irp_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                        int nh, int t, int d, int variant, int stages,
-                                       int full_heads, int smem_bytes, float scale, void* stream) {
+                                       int full_heads, int grid_units, int splits, int smem_bytes,
+                                       float scale, void* stream) {
   if (nh <= 0 || t <= 0 || nh > 65535 || static_cast<int64_t>(nh) * t > INT32_MAX) {
     return cudaErrorInvalidValue;  // rows are counted in 32 bits, as the tensor maps' coordinates are
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x * log2 e)
   if (variant == 1 || variant == 2) {
-    if (d != kHeadDim) return cudaErrorInvalidValue;
-    return variant == 1
-               ? launch_wgmma<1>(q, k, v, o, nh, t, stages, full_heads, smem_bytes, scale_log2, s)
-               : launch_wgmma<3>(q, k, v, o, nh, t, stages, full_heads, smem_bytes, scale_log2, s);
+    if (d == 64) {
+      return variant == 1 ? launch_wgmma<1, 64>(q, k, v, o, nh, t, stages, full_heads, grid_units,
+                                                splits, smem_bytes, scale_log2, s)
+                          : launch_wgmma<3, 64>(q, k, v, o, nh, t, stages, full_heads, grid_units,
+                                                splits, smem_bytes, scale_log2, s);
+    }
+    if (d == 32) {
+      return variant == 1 ? launch_wgmma<1, 32>(q, k, v, o, nh, t, stages, full_heads, grid_units,
+                                                splits, smem_bytes, scale_log2, s)
+                          : launch_wgmma<3, 32>(q, k, v, o, nh, t, stages, full_heads, grid_units,
+                                                splits, smem_bytes, scale_log2, s);
+    }
+    return cudaErrorInvalidValue;
   }
+  if (splits != 1) return cudaErrorInvalidValue;
   if (variant == 0) {
-    if (t % kBlockQ != 0 || smem_bytes != 0) return cudaErrorInvalidValue;
+    if (t % kBlockQ != 0 || smem_bytes != 0 || grid_units != nh * (t / kBlockQ)) {
+      return cudaErrorInvalidValue;
+    }
     const dim3 grid(t / kBlockQ, nh);
     const auto* qb = static_cast<const __nv_bfloat16*>(q);
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
@@ -987,6 +1310,7 @@ extern "C" int irp_flash_attention_fwd(const void* q, const void* k, const void*
     return static_cast<int>(cudaGetLastError());
   }
   if (variant == 3) {
+    if (t % kF32BlockQ != 0 || grid_units != nh * (t / kF32BlockQ)) return cudaErrorInvalidValue;
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);
@@ -997,3 +1321,4 @@ extern "C" int irp_flash_attention_fwd(const void* q, const void* k, const void*
   }
   return cudaErrorInvalidValue;
 }
+

@@ -32,23 +32,40 @@ KERNEL_BLOCK = 64
 KERNEL_HEAD_DIMS = (32, 64)
 SOURCE = "flash_attention.cu"
 
-# what a block may use of an SM's shared memory, and the SMs of an H100 SXM
-MAX_SHARED_BYTES = 232_448
+# what a block may use of an SM's shared memory (less the kernel's static
+# barriers), and the SMs of an H100 SXM
+MAX_SHARED_BYTES = 232_448 - 1024
 H100_SM_COUNT = 132
-# the wgmma variants: 128-key K/V stages of 16 KB each for K and for V, 8 KB of
-# Q per consumer warpgroup (64 queries), 1 KB of slack to align the ring to the
-# 1024 bytes over which the 128-byte swizzle repeats
+# the wgmma variants: 128-key K/V stages of 128 * 2D bytes each for K and for
+# V, 64 * 2D bytes of Q per consumer warpgroup (64 queries), two Q buffers in
+# a persistent grid, and 1 KB of slack to align the ring to the 1024 bytes
+# over which the 128-byte swizzle repeats; a key split adds block 0's region
+# for the other blocks' partials (per consumer thread D / 2 floats of O, the
+# max and the row sums of two rows)
 WGMMA_TILE_KEYS = 128
 WGMMA_WARPGROUP_ROWS = 64
 WGMMA_MAX_STAGES = 4
 WGMMA_ALIGN = 1024
-# What one block costs beside a block of three consumer warpgroups (192
-# queries), measured on an H100 at T = 4096 (all blocks walk the same keys, so
-# fewer queries make a block cheaper, but not in proportion): two warpgroups
-# (128 queries) 0.80, one warpgroup in a block of its own (64 queries) 0.52.
-WGMMA_COST_Q128 = 0.80
-WGMMA_COST_Q64 = 0.52
-# above this many waves of blocks the last wave no longer matters
+WGMMA_SPLITS = (1, 2, 4)
+# What a unit takes on its SM, in microseconds: (fixed, per 128-key tile) by
+# (warpgroups working on it, D). The fixed part is the block's prologue and
+# epilogue (barriers, the first loads, the store); in a persistent grid a unit
+# after the first pays PERSISTENT_UNIT_US of it, a key split adds
+# SPLIT_COMBINE_US for the hand-over. Fitted to the times of every plan at the
+# launched shapes on an H100 SXM (chip_smoke.py --plan-sweep; PERF.md section 6).
+UNIT_COST_US = {
+    (3, 64): (4.39, 1.398), (2, 64): (3.78, 1.082), (1, 64): (2.24, 0.760),
+    (3, 32): (3.39, 1.158), (2, 32): (3.81, 0.884), (1, 32): (2.06, 0.636),
+}
+PERSISTENT_UNIT_US = 1.27
+SPLIT_COMBINE_US = 2.30
+# a persistent grid is weighed only for units of at most this many key tiles
+# by D: at D = 64 and T = 4096 the model would pick persistent plans that ran
+# behind the best one-block-a-unit grid on the card (5 % at [2, 4, 4096, 64];
+# the model does not see why), at D = 32 and T = 4096 they ran ahead
+# (PERF.md section 6)
+PERSISTENT_MAX_KEY_TILES = {64: 8, 32: 32}
+# above this many waves of blocks the last one no longer matters
 WGMMA_PLANNED_WAVES = 16
 # the f32 variant: 32 queries and 64-key tiles, rows padded by 4 floats
 F32_BLOCK_Q, F32_BLOCK_K, F32_PAD = 32, 64, 4
@@ -60,7 +77,8 @@ VARIANTS = {"mma_sync": 0, "wgmma_q64": 1, "wgmma_q192": 2, "simt_f32": 3}
 @dataclass(frozen=True)
 class LaunchPlan:
     """How one call launches: which variant of the kernel, its tiles, the
-    depth of its K/V ring, and the grid and dynamic shared memory."""
+    depth of its K/V ring, the grid and dynamic shared memory, and for the
+    wgmma kernel its units of work and how the grid walks them."""
 
     variant: str
     block_q: int
@@ -69,9 +87,25 @@ class LaunchPlan:
     threads: int
     shared_bytes: int
     grid: tuple[int, int]
-    # wgmma_q192 only: the first full_heads of the N*H heads run blocks of
-    # block_q queries, the rest blocks of block_q - 64; elsewhere all N*H
+    # wgmma_q192 only: the first full_heads of the N*H heads run units of
+    # block_q queries, the rest units of block_q - 64; elsewhere all N*H
     full_heads: int
+    # (head, query block) units; the grid's clusters walk them round-robin
+    units: int
+    # blocks of a cluster, each on an equal share of the keys (1: no split)
+    splits: int = 1
+
+    @property
+    def clusters(self) -> int:
+        return self.grid[0] * self.grid[1] // self.splits
+
+    @property
+    def schedule(self) -> str:
+        """``split`` (a cluster of blocks a unit), ``persistent`` (fewer
+        blocks than units, each walking several) or ``grid`` (a block a unit)."""
+        if self.splits > 1:
+            return "split"
+        return "persistent" if self.clusters < self.units else "grid"
 
 
 def _waves(full_blocks: int, small_blocks: int, small_cost: float, sm_count: int) -> float:
@@ -95,51 +129,109 @@ def _waves(full_blocks: int, small_blocks: int, small_cost: float, sm_count: int
     return best
 
 
-@functools.lru_cache(maxsize=256)
-def _wgmma_split(heads: int, t: int, sm_count: int) -> tuple[float, int]:
-    """(waves, full_heads) of the three-warpgroup kernel: how many heads take
-    192-query blocks so that the last wave of blocks is shortest. At
-    [32, 4096] on 132 SMs 704 blocks of 192 queries are 5.33 waves, six
-    rounds of which the last is a third full; 24 heads of them (4 waves) and
-    8 heads of 128-query blocks (1.94 waves at 0.80 each) end after 5.6."""
-    per_full = -(-t // (3 * WGMMA_WARPGROUP_ROWS))
-    per_small = t // (2 * WGMMA_WARPGROUP_ROWS)
-    if heads * per_full > WGMMA_PLANNED_WAVES * sm_count:
-        return heads * per_full / sm_count, heads
-    # ties go to the plan with more full heads
-    waves, minus_full = min(
-        (_waves(full * per_full, (heads - full) * per_small, WGMMA_COST_Q128, sm_count), -full)
-        for full in range(heads + 1))
-    return waves, -minus_full
+def wgmma_units(heads: int, t: int, consumers: int, full_heads: int) -> int:
+    """The (head, query block) units of a launch: ceil(T / 192) for each of
+    the first full_heads heads, T / 128 for the others (three warpgroups);
+    T / 64 a head (one)."""
+    if consumers == 1:
+        return heads * (t // WGMMA_WARPGROUP_ROWS)
+    return full_heads * -(-t // (3 * WGMMA_WARPGROUP_ROWS)) + (heads - full_heads) * (t // (2 * WGMMA_WARPGROUP_ROWS))
 
 
-def wgmma_plan(heads: int, t: int, consumers: int, full_heads: int) -> LaunchPlan:
-    """The launch of the wgmma kernel on [heads, t, 64] bf16 with one or three
+def wgmma_plan(heads: int, t: int, consumers: int, full_heads: int, *, d: int = 64, splits: int = 1,
+               clusters: int | None = None) -> LaunchPlan:
+    """The launch of the wgmma kernel on [heads, t, d] bf16 with one or three
     consumer warpgroups; with three, the first full_heads heads take
-    192-query blocks and the rest 128-query blocks."""
-    if consumers not in (1, 3) or t % WGMMA_TILE_KEYS != 0:
-        raise ValueError(f"no wgmma kernel with {consumers} consumer warpgroups on T = {t}")
+    192-query units and the rest 128-query units. ``splits`` blocks of a
+    cluster share out the keys of each unit; ``clusters`` (default: one a
+    unit) below the units makes the grid persistent, which takes alike units
+    and no split."""
+    tiles = t // WGMMA_TILE_KEYS
+    if consumers not in (1, 3) or d not in KERNEL_HEAD_DIMS or t % WGMMA_TILE_KEYS != 0 or t < 1:
+        raise ValueError(f"no wgmma kernel with {consumers} consumer warpgroups on T = {t}, D = {d}")
     if not 0 <= full_heads <= heads or (consumers == 1 and full_heads != heads):
         raise ValueError(f"{full_heads} of {heads} heads cannot take full blocks ({consumers} warpgroups)")
+    if splits not in WGMMA_SPLITS or tiles % splits != 0:
+        raise ValueError(f"{tiles} key tiles cannot be split {splits} ways")
+    units = wgmma_units(heads, t, consumers, full_heads)
+    clusters = units if clusters is None else clusters
+    if not 1 <= clusters <= units:
+        raise ValueError(f"{clusters} clusters for {units} units")
+    persistent = clusters < units
+    if persistent and (splits != 1 or full_heads not in (0, heads)):
+        raise ValueError("a persistent grid takes alike units and no key split")
     block_q = consumers * WGMMA_WARPGROUP_ROWS
-    stages = min(WGMMA_MAX_STAGES, t // WGMMA_TILE_KEYS)
-    shared = WGMMA_ALIGN + 2 * 64 * (block_q + 2 * stages * WGMMA_TILE_KEYS)
-    # the grid is sized for the heads with the smaller blocks, if any
-    smallest = block_q if full_heads == heads else block_q - WGMMA_WARPGROUP_ROWS
+    stages = min(WGMMA_MAX_STAGES, tiles // splits)
+    shared = (WGMMA_ALIGN + (2 if persistent else 1) * consumers * WGMMA_WARPGROUP_ROWS * 2 * d
+              + 2 * stages * WGMMA_TILE_KEYS * 2 * d + (splits - 1) * consumers * 128 * (d // 2 + 4) * 4)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"a {splits}-way split of {block_q}-query units needs {shared} bytes of shared memory")
     return LaunchPlan(f"wgmma_q{block_q}", block_q, WGMMA_TILE_KEYS, stages, (consumers + 1) * 128,
-                      shared, (-(-t // smallest), heads), full_heads)
+                      shared, (clusters * splits, 1), full_heads, units, splits)
+
+
+def plan_us(plan: LaunchPlan, t: int, d: int, sm_count: int) -> float:
+    """The model's time of a wgmma plan beyond the launch, from UNIT_COST_US,
+    PERSISTENT_UNIT_US and SPLIT_COMBINE_US: a grid's blocks (full units,
+    then small ones; a split's blocks of a unit together) handed out in
+    order to the first free SM, one block an SM (``_waves``); a persistent
+    grid's clusters each walking ceil(units / clusters) alike units, the
+    first at the full fixed cost."""
+    tiles = t // WGMMA_TILE_KEYS // plan.splits
+    consumers = plan.block_q // WGMMA_WARPGROUP_ROWS
+    if plan.schedule == "persistent":
+        fixed, per_tile = UNIT_COST_US[(consumers if plan.full_heads else consumers - 1, d)]
+        k = -(-plan.units // plan.clusters)
+        return fixed + k * per_tile * tiles + (k - 1) * PERSISTENT_UNIT_US
+    extra = SPLIT_COMBINE_US if plan.splits > 1 else 0.0
+    full = UNIT_COST_US[(consumers, d)][0] + UNIT_COST_US[(consumers, d)][1] * tiles + extra
+    full_units = plan.full_heads * -(-t // plan.block_q)
+    if full_units == plan.units:
+        return full * -(-plan.units * plan.splits // sm_count)
+    small = UNIT_COST_US[(consumers - 1, d)][0] + UNIT_COST_US[(consumers - 1, d)][1] * tiles + extra
+    return full * _waves(full_units * plan.splits, (plan.units - full_units) * plan.splits, small / full, sm_count)
+
+
+def wgmma_candidates(heads: int, t: int, d: int, sm_count: int) -> list[LaunchPlan]:
+    """Every plan the wrapper weighs for [heads, t, d] bf16: three
+    warpgroups with each mix of 192- and 128-query units (the first
+    full_heads heads on 192, from all heads down to none; beyond
+    WGMMA_PLANNED_WAVES waves of 192-query units, where the last wave no
+    longer matters, all heads on 192), one warpgroup; where the units are
+    fewer than the SMs, each with its keys split 2 or 4 ways (as far as
+    shared memory and the key tiles allow); where they are more and short
+    enough (PERSISTENT_MAX_KEY_TILES), a persistent grid of one block an SM
+    on alike units (192, 128 or 64 queries)."""
+    per_full = -(-t // (3 * WGMMA_WARPGROUP_ROWS))
+    mixes = [heads] if heads * per_full > WGMMA_PLANNED_WAVES * sm_count else range(heads, -1, -1)
+    plans = [wgmma_plan(heads, t, 3, full, d=d) for full in mixes] + [wgmma_plan(heads, t, 1, heads, d=d)]
+    for base in list(plans):
+        if base.units < sm_count:
+            for splits in WGMMA_SPLITS[1:]:
+                try:
+                    plans.append(wgmma_plan(heads, t, base.block_q // 64, base.full_heads, d=d, splits=splits))
+                except ValueError:  # too few key tiles, or too much shared memory
+                    pass
+    if t // WGMMA_TILE_KEYS <= PERSISTENT_MAX_KEY_TILES[d]:
+        for consumers, full in ((3, heads), (3, 0), (1, heads)):
+            if wgmma_units(heads, t, consumers, full) > sm_count:
+                plans.append(wgmma_plan(heads, t, consumers, full, d=d, clusters=sm_count))
+    return plans
+
+
+@functools.lru_cache(maxsize=256)
+def _best_wgmma_plan(heads: int, t: int, d: int, sm_count: int) -> LaunchPlan:
+    plans = wgmma_candidates(heads, t, d, sm_count)
+    return min(plans, key=lambda p: (plan_us(p, t, d, sm_count), plans.index(p)))
 
 
 def launch_plan(shape, dtype: torch.dtype, sm_count: int = H100_SM_COUNT) -> LaunchPlan:
     """The launch of an [N, H, T, D] call; raises on what no variant takes.
 
-    bf16 with D = 64 and T a multiple of 128 takes the wgmma kernel, with
-    the tile that ends first by the count of waves: three consumer
-    warpgroups on 192 queries a block (the last block of a head may reach
-    past it; some heads may take 128-query blocks to shorten the last wave,
-    ``_wgmma_split``), or one warpgroup on 64 queries, which gives a small
-    grid three times the blocks. Other bf16 shapes take the mma.sync kernel,
-    f32 the SIMT kernel."""
+    bf16 with T a multiple of 128 takes the wgmma kernel, with the plan of
+    ``wgmma_candidates`` that the model of measured unit costs
+    (``plan_us``) ends first; ties go to the earlier candidate. Other bf16
+    shapes take the mma.sync kernel, f32 the SIMT kernel."""
     if len(shape) != 4:
         raise ValueError(f"q/k/v must be [N, H, T, D], got {tuple(shape)}")
     n, h, t, d = (int(x) for x in shape)
@@ -154,17 +246,12 @@ def launch_plan(shape, dtype: torch.dtype, sm_count: int = H100_SM_COUNT) -> Lau
     if dtype == torch.float32:
         floats = (F32_BLOCK_Q + 4 * F32_BLOCK_K) * (d + F32_PAD) + F32_BLOCK_Q * (F32_BLOCK_K + F32_PAD)
         plan = LaunchPlan("simt_f32", F32_BLOCK_Q, F32_BLOCK_K, 2, 4 * F32_BLOCK_Q, 4 * floats,
-                          (t // F32_BLOCK_Q, n * h), n * h)
-    elif d == 64 and t % WGMMA_TILE_KEYS == 0:
-        waves_q192, full_heads = _wgmma_split(n * h, t, sm_count)
-        waves_q64 = -(-(n * h * (t // WGMMA_WARPGROUP_ROWS)) // sm_count) * WGMMA_COST_Q64
-        if waves_q192 <= waves_q64:
-            plan = wgmma_plan(n * h, t, 3, full_heads)
-        else:
-            plan = wgmma_plan(n * h, t, 1, n * h)
+                          (t // F32_BLOCK_Q, n * h), n * h, n * h * (t // F32_BLOCK_Q))
+    elif t % WGMMA_TILE_KEYS == 0:
+        plan = _best_wgmma_plan(n * h, t, d, sm_count)
     else:
         plan = LaunchPlan("mma_sync", KERNEL_BLOCK, KERNEL_BLOCK, 1, 2 * KERNEL_BLOCK, 0,
-                          (t // KERNEL_BLOCK, n * h), n * h)
+                          (t // KERNEL_BLOCK, n * h), n * h, n * h * (t // KERNEL_BLOCK))
     assert plan.shared_bytes <= MAX_SHARED_BYTES and 0 <= plan.full_heads <= n * h
     return plan
 
@@ -208,7 +295,8 @@ class FlashKernel:
             fn = build.load(SOURCE).irp_flash_attention_fwd
             fn.argtypes = [
                 *[ctypes.c_void_p] * 4,  # q, k, v, o
-                *[ctypes.c_int] * 7,  # nh, t, d, variant, stages, full_heads, smem_bytes
+                # nh, t, d, variant, stages, full_heads, clusters, splits, smem_bytes
+                *[ctypes.c_int] * 9,
                 ctypes.c_float, ctypes.c_void_p,  # scale, stream
             ]
             fn.restype = ctypes.c_int
@@ -240,7 +328,8 @@ class FlashKernel:
         if plan is None:
             plan = chosen
         elif not (chosen.variant.startswith("wgmma") and plan.variant.startswith("wgmma")
-                  and plan == wgmma_plan(n * h, t, plan.block_q // WGMMA_WARPGROUP_ROWS, plan.full_heads)):
+                  and plan == wgmma_plan(n * h, t, plan.block_q // WGMMA_WARPGROUP_ROWS, plan.full_heads,
+                                         d=d, splits=plan.splits, clusters=plan.clusters)):
             raise ValueError(f"{plan} is no launch of the flash attention kernel on {tuple(q.shape)}")
         fn = self._bind()
         out = torch.empty_like(q)
@@ -248,8 +337,8 @@ class FlashKernel:
         with torch.cuda.device(q.device):
             err = fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                n * h, t, d, VARIANTS[plan.variant], plan.stages, plan.full_heads, plan.shared_bytes,
-                1.0 / math.sqrt(d), stream,
+                n * h, t, d, VARIANTS[plan.variant], plan.stages, plan.full_heads, plan.clusters,
+                plan.splits, plan.shared_bytes, 1.0 / math.sqrt(d), stream,
             )
         if err != 0:
             what = f"tensor-map encode, CUresult {err - 10000}" if err >= 10000 else f"cudaError {err}"
