@@ -155,7 +155,18 @@ failure (exit code 1):
    step each, and the defaults those times argue for (``fold_w_sr`` stays
    on unless the folded sr_tiled step is slower by more than the engines'
    spread; ``fold_w`` goes on only if the folded 512 b8 step is faster by
-   more than it).
+   more than it);
+11. promotion: the retrain-and-promote chain (retrain/) with the shipped
+   weights in bf16: the port's r5_anchor.json manifest, its two chunks cut
+   to 20 steps in a temporary staging directory warm-started from a copy
+   of weights/restore-unet.npz, run by ``chip_queue.Runner`` behind the card
+   probe "alive" (both chunks done, the attention kernel launched in each
+   payload, read from its log); ``rank_candidates --include-shipped`` at
+   --n 4 in this process (every candidate scored); ``validate_staging`` on
+   the ranker's winner (its row printed) and on a byte copy of weights/
+   (every family PROMOTEs with no regression, the largest |staged - shipped|
+   printed); the attention launches of the ranker and the gate counted
+   from 0; weights/ unchanged.
 
 Every engine and trainer replays CUDA graphs by default (the executable
 tier), so phases 3-8 run on graphs; the launch counts read the kernels' counters,
@@ -170,8 +181,8 @@ plain forward at [32, 4, 256, 64].
 ``--plan-sweep`` times every attention plan the wrapper weighs at every
 launched shape after it and fits the plan model to the times,
 and ``--train-only``, ``--mesh-only``, ``--quality-only``,
-``--graphs-only`` and ``--fold-only`` run phase 6, 7, 8, 9 or 10 (after its
-own warm-up) alone after the builds; they print no result lines and exit 0 or 1. The last
+``--graphs-only``, ``--fold-only`` and ``--promotion-only`` run phase 6, 7,
+8, 9, 10 or 11 (after its own warm-up) alone after the builds; they print no result lines and exit 0 or 1. The last
 lines of standard output are the card line, the kernels JSON line, and
 {"ok": true, "device": {...}}.
 """
@@ -214,6 +225,9 @@ KERNEL_SHAPES = [  # (shape [N,H,T,D], dtype, where the path uses it)
     ((32, 2, 4096, 32), "bfloat16", "training restore-unet-small 128 b32"),
     ((2, 4, 1024, 64), "bfloat16", "restore-unet 256 b2 / b4 serving; diffusion-restore 128"),
     ((4, 4, 1024, 64), "bfloat16", "restore-unet 256 b2 / b4 serving; diffusion-restore 128"),
+    ((48, 4, 256, 64), "bfloat16", "retrain gate: eval.ood at its n = 48, restore-unet 128"),
+    ((4, 4, 256, 64), "bfloat16", "retrain ranker: eval.ood and eval.flagship_quick at --n 4, restore-unet 128"),
+    ((16, 4, 256, 64), "bfloat16", "the train entry point's held-out evals, restore-unet 128 b16"),
 ]
 # the gradient check: dq, dk, dv through FlashAttention (kernel forward, plain
 # backward) against autograd through the plain forward, at the training shape
@@ -2851,6 +2865,186 @@ def phase_fold(torch, np, report, card):
     return {"flash_attention": {"fold": launches["flash_attention"]}, "blend_tiles": {"fold": launches["blend_tiles"]}}
 
 
+# the promotion phase: the retrain-and-promote chain (retrain/) on the card,
+# bf16, full width, the shipped weights. Reductions: each of the r5-anchor
+# manifest's two chunks trains PROMOTION_TRAIN_STEPS steps (the manifest's
+# 4000), and its min_remaining (1200 s) becomes PROMOTION_MIN_REMAINING_S
+# under a cutoff PROMOTION_QUEUE_S ahead, so a payload that hangs ends
+# inside the script's limit; the ranker scores at --n PROMOTION_RANK_N (its
+# default 8); the gate runs at the reference's sizes (eval.quality 8 x 4
+# seeds, eval.ood 48 a class)
+PROMOTION_TRAIN_STEPS = 20
+PROMOTION_QUEUE_S, PROMOTION_MIN_REMAINING_S = 480, 300
+PROMOTION_RANK_N = 4
+PROMOTION_FAMILY = "restore-unet"
+
+
+def _payload_said(log_path: str) -> dict:
+    """The context of the payload's last "training done" log line."""
+    said = [line for line in open(log_path, errors="replace") if "training done" in line]
+    check(bool(said), f"{log_path}: no 'training done' line")
+    return json.loads(said[-1][said[-1].index("{"):])
+
+
+def _payload_seconds(runner_log: str) -> dict:
+    """Wall seconds of each payload's last attempt, from the runner's log
+    (whole seconds: the log's clock)."""
+    def clock(line):
+        h, m, s = (int(x) for x in line.split(" ", 1)[0].split(":"))
+        return 3600 * h + 60 * m + s
+
+    starts, out = {}, {}
+    for line in open(runner_log):
+        msg = line.split(" ", 1)[1]
+        name = msg.split(":", 1)[0]
+        if ": start attempt " in msg:
+            starts[name] = clock(line)
+        elif ": rc=" in msg and name in starts:
+            out[name] = (clock(line) - starts[name]) % 86400
+    return out
+
+
+def phase_promotion(torch, np, report, card):
+    """The retrain-and-promote chain on the card with the shipped weights:
+
+    1. the queue: a temporary staging directory seeded with a copy of
+       weights/restore-unet.npz; the port's r5_anchor.json manifest with its
+       IRP_WEIGHTS_DIR, skip_if and post pointed into that directory and
+       TRAIN_STEPS cut to PROMOTION_TRAIN_STEPS (the recipe otherwise the
+       manifest's: 128 b32, the r5-anchor mix, TRAIN_ANCHOR_COMP, warm
+       start; ``python`` is this interpreter), run by
+       ``retrain.chip_queue.Runner`` with the card probe "alive": both
+       chunks end done, and each payload's "training done" line says the
+       attention kernel launched (the payload is a subprocess: its count
+       is read from its log);
+    2. the ranker: ``rank_candidates --include-shipped`` over the directory
+       at --n PROMOTION_RANK_N in this process: every candidate scored, no
+       evaluation failed;
+    3. the gate: ``validate_staging`` on a stage holding the ranker's
+       winner (its row printed), then on a stage that is a byte copy of
+       every npz under weights/ (the default family discovery): every
+       family PROMOTEs with its gates green, no regression and no
+       improvement beyond the tolerance, and the largest |staged - shipped|
+       over the axes is printed: the card's check that the gate and the
+       evaluations are deterministic enough to decide anything.
+
+    The attention kernel's count is set to 0 before step 2 and read after
+    step 3 (> 0). Each step's seconds and the phase's are printed beside
+    the card's name and power limit; weights/ is unchanged (sha256)."""
+    import glob
+    import shutil
+    import tempfile
+
+    from image_restoration_platform_tpu_torch.ops.cuda.attention import flash_kernel
+    from image_restoration_platform_tpu_torch.retrain import chip_queue, rank_candidates, validate_staging
+
+    shipped_paths = sorted(glob.glob(os.path.join(REPO, "weights", "*.npz")))
+    check(len(shipped_paths) == 5, f"weights/ holds {shipped_paths}")
+    shipped_sha = {p: _sha256(p) for p in shipped_paths}
+    flagship_npz = os.path.join(REPO, "weights", f"{PROMOTION_FAMILY}.npz")
+    torch.cuda.empty_cache()
+    out: dict = {"card": card, "train_steps": PROMOTION_TRAIN_STEPS, "rank_n": PROMOTION_RANK_N}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_promotion_")
+    t_phase = time.perf_counter()
+    try:
+        # --- 1. the queue
+        stage = os.path.join(tmp, "staging_anchor")
+        os.makedirs(stage)
+        shutil.copy(flagship_npz, stage)
+        manifest = json.load(open(os.path.join(chip_queue.QUEUES, "r5_anchor.json")))
+        for p in manifest:
+            p["env"] = {**p["env"], "IRP_WEIGHTS_DIR": stage, "TRAIN_STEPS": str(PROMOTION_TRAIN_STEPS)}
+            p["skip_if"] = p["skip_if"].replace(".staging_anchor", stage)
+            p["post"] = p["post"].replace(".staging_anchor", stage)
+            p["cmd"] = p["cmd"].replace("python ", f"{sys.executable} ", 1)
+            p["min_remaining"] = PROMOTION_MIN_REMAINING_S
+        logdir = os.path.join(tmp, "queue")
+        t = time.perf_counter()
+        chip_queue.Runner(manifest, time.time() + PROMOTION_QUEUE_S, logdir).run()
+        out["queue_s"] = time.perf_counter() - t
+        summary = json.load(open(os.path.join(logdir, "SUMMARY.json")))
+        names = [p["name"] for p in manifest]
+        if summary != {name: "done" for name in names}:
+            for name in names:
+                log_path = os.path.join(logdir, f"{name}.log")
+                if os.path.exists(log_path):
+                    print(f"  {name} log tail: {open(log_path, errors='replace').read()[-3000:]}", flush=True)
+        check(summary == {name: "done" for name in names}, f"the queue's summary {summary}")
+        said = {name: _payload_said(os.path.join(logdir, f"{name}.log")) for name in names}
+        out["payload_wall_s"] = _payload_seconds(os.path.join(logdir, "runner.log"))
+        out["payload_train_s"] = {name: s["seconds"] for name, s in said.items()}
+        out["payload_attention_launches"] = {name: s["attentionLaunches"] for name, s in said.items()}
+        for name, s in said.items():
+            check(s["steps"] == PROMOTION_TRAIN_STEPS and s["attentionLaunches"] >= PROMOTION_TRAIN_STEPS,
+                  f"{name}: training done with {s}")
+            check(os.path.exists(os.path.join(stage, f"{PROMOTION_FAMILY}.{name.split('_')[-1]}.npz")),
+                  f"{name}: its post hook left no snapshot")
+        print(json.dumps({"promotion_queue": {k: out[k] for k in ("queue_s", "payload_wall_s", "payload_train_s",
+                                                                   "payload_attention_launches")},
+                          "card": card}), flush=True)
+
+        # --- 2. the ranker, in this process
+        _zero_launches(flash_kernel)
+        t = time.perf_counter()
+        results, failed = rank_candidates.rank(stage, PROMOTION_FAMILY, PROMOTION_RANK_N, True, "cuda")
+        out["rank_s"] = time.perf_counter() - t
+        candidates = sorted(f for f in os.listdir(stage) if f.startswith(PROMOTION_FAMILY) and f.endswith(".npz"))
+        check(not failed, f"the ranker's evaluations failed for {failed}")
+        check(sorted(r["candidate"] for r in results) == sorted(["__shipped__", *candidates]),
+              f"the ranker scored {[r['candidate'] for r in results]} of {candidates}")
+        out["rank"] = results
+        out["rank_s_per_candidate"] = out["rank_s"] / len(results)
+        print(json.dumps({"promotion_rank": [{k: r[k] for k in ("candidate", "score")} for r in results],
+                          "rank_s": out["rank_s"], "card": card}), flush=True)
+
+        # --- 3. the gate: the winner, then a byte copy of weights/
+        winner = results[0]["candidate"]
+        stage_w = os.path.join(tmp, "stage_winner")
+        os.makedirs(stage_w)
+        shutil.copy(flagship_npz if winner == "__shipped__" else os.path.join(stage, winner),
+                    os.path.join(stage_w, f"{PROMOTION_FAMILY}.npz"))
+        t = time.perf_counter()
+        rows = validate_staging.validate(stage_w, device="cuda")
+        out["gate_winner_s"] = time.perf_counter() - t
+        out["gate_winner"] = {"candidate": winner, "rows": rows}
+        print(json.dumps({"promotion_gate_winner": out["gate_winner"], "s": out["gate_winner_s"]}), flush=True)
+        check([r["family"] for r in rows] == [PROMOTION_FAMILY], f"the winner's gate rows {rows}")
+
+        stage_s = os.path.join(tmp, "stage_shipped")
+        os.makedirs(stage_s)
+        for path in shipped_paths:
+            shutil.copy(path, stage_s)
+        axes: dict = {}
+        t = time.perf_counter()
+        rows = validate_staging.validate(stage_s, device="cuda", axes=axes)
+        out["gate_shipped_s"] = time.perf_counter() - t
+        launches = _read_launches("flash_attention", flash_kernel)
+        deltas = {f"{fam}/{k}": abs(v["staged"][k] - v["shipped"][k])
+                  for fam, v in axes.items() for k in v["shipped"] if k in v["staged"]}
+        worst = max(deltas, key=deltas.get)
+        out["gate_shipped"] = rows
+        out["shipped_vs_shipped_max_delta"] = {"axis": worst, "delta": deltas[worst], "axes": len(deltas)}
+        out["attention_launches"] = launches
+        print(json.dumps({"promotion_gate_shipped": rows, "s": out["gate_shipped_s"],
+                          "max_delta": out["shipped_vs_shipped_max_delta"]}), flush=True)
+        families = sorted(os.path.basename(p)[: -len(".npz")] for p in shipped_paths)
+        check([r["family"] for r in rows] == families, f"the gate found {[r['family'] for r in rows]}")
+        for r in rows:
+            check(r["verdict"] == "PROMOTE" and r["gates_green"] and not r["gate_failures"]
+                  and not r["regressions"] and not r["improvements"], f"a byte copy of weights/ did not PROMOTE: {r}")
+        check(launches > 0, "the ranker and the gate launched no attention kernel")
+        out["seconds"] = time.perf_counter() - t_phase
+        print(json.dumps({"promotion_phase": {k: out[k] for k in (
+            "seconds", "queue_s", "rank_s", "rank_s_per_candidate", "gate_winner_s", "gate_shipped_s",
+            "attention_launches")}, "card": card}), flush=True)
+        report["promotion"] = out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check({p: _sha256(p) for p in shipped_paths} == shipped_sha, "the phase changed weights/")
+    torch.cuda.empty_cache()
+    return {"promotion": launches, "promotion_queue": sum(out["payload_attention_launches"].values())}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one NVIDIA card.")
     parser.add_argument("--report", help="also write the full report as JSON to this path")
@@ -2870,6 +3064,8 @@ def main() -> int:
                         help="build the kernels and run the training phase (6) alone; prints no result lines")
     parser.add_argument("--fold-only", action="store_true",
                         help="build the kernels and run the W-fold phase (10) alone; prints no result lines")
+    parser.add_argument("--promotion-only", action="store_true",
+                        help="build the kernels and run the promotion phase (11) alone; prints no result lines")
     args = parser.parse_args()
     try:
         import torch
@@ -2932,6 +3128,14 @@ def main() -> int:
                 json.dump(report, f, indent=1, default=str)
         print(f"fold only: {time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    if args.promotion_only:
+        phase_promotion(torch, np, report, card)
+        if args.report:
+            os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        print(f"promotion only: {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     if args.train_only:
         phase_train(torch, np, report, card)
         if args.report:
@@ -2982,6 +3186,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, by_path in phase_fold(torch, np, report, card).items():
         launches[name].update(by_path)
+    launches["flash_attention"].update(phase_promotion(torch, np, report, card))
 
     main_row = next(r for r in rows if r["shape"] == [8, 4, 4096, 64])
     blend_row = blend_rows[0]  # the 2K -> 4K grid the SR path runs

@@ -43,7 +43,7 @@ def host(a) -> np.ndarray:
 
 def psnr(a, b) -> float:
     mse = float(np.mean(np.square(host(a) - host(b))))
-    return 10.0 * np.log10(1.0 / max(mse, 1e-10))
+    return float(10.0 * np.log10(1.0 / max(mse, 1e-10)))
 
 
 def per_image_psnr(a, b) -> np.ndarray:
@@ -93,12 +93,12 @@ def tensor(a, device) -> torch.Tensor:
     return a.to(device=device, dtype=torch.float32)
 
 
-def load_model(family_name: str, device, dtype: torch.dtype) -> torch.nn.Module:
-    """The family's module with its shipped weights on ``device``; raises
-    when the weights file is missing (an eval of random weights says
-    nothing)."""
+def load_model(family_name: str, device, dtype: torch.dtype, weights_dir: str | None = None) -> torch.nn.Module:
+    """The family's module with its weights from ``weights_dir`` (default:
+    IRP_WEIGHTS_DIR, else weights/) on ``device``; raises when the weights
+    file is missing (an eval of random weights says nothing)."""
     device = resolve_device(device)
-    path = W.weights_path(family_name)
+    path = W.weights_path(family_name, weights_dir)
     if not os.path.exists(path):
         raise FileNotFoundError(f"no shipped weights for {family_name} at {path}")
     model = get_family(family_name).build()
@@ -150,10 +150,13 @@ def classified_forward(model, x_f32, dtype: torch.dtype = torch.bfloat16) -> tor
 
 
 def device_args(parser: argparse.ArgumentParser) -> None:
-    """``--device`` (default cuda: no card raises unless ``--device cpu``)
-    and ``--dtype`` (default bfloat16, the serving type)."""
+    """``--device`` (default cuda: no card raises unless ``--device cpu``),
+    ``--dtype`` (default bfloat16, the serving type) and ``--weights-dir``
+    (default: IRP_WEIGHTS_DIR, else weights/)."""
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
+    parser.add_argument("--weights-dir", default=None, help="directory of <family>.npz (default: IRP_WEIGHTS_DIR, "
+                        "else weights/)")
 
 
 def log(msg: str) -> None:

@@ -10,6 +10,11 @@ caller (the JAX package's held-out arrays) or from the port's own draws
 (``heldout``, ``near_clean``, ``diffusion_noise``), made on the CPU from
 the gate seeds and then moved, so the card and the CPU see the same
 numbers.
+
+The ``*_checks`` functions name each gate by the pytest node id of the
+reference's test (``QUALITY_TESTS`` etc.) and give its failure message, or
+None where it holds; ``family_gates`` runs the gates of one family only, as
+the promotion gate (retrain/validate_staging.py) needs.
 """
 
 from __future__ import annotations
@@ -20,9 +25,14 @@ import torch
 from ..models import diffusion, get_family
 from ..train.data import DataConfig, _random_clean_rich, synthetic_batch
 from ..train.ood import OOD_DEGRADATIONS, ood_clean, ood_eval_batch
+from ..train.realphoto import available_sources, real_clean_patches, real_eval_batch
 from .common import classified_forward, host, model_device, psnr, serving_forward, tensor
 
 N, SIZE = 8, 128
+# the reference's gate tests, whose pytest node ids name the gates below
+QUALITY_TESTS = "tests/test_quality.py::"
+OOD_TESTS = "tests/test_quality_ood.py::"
+REAL_TESTS = "tests/test_quality_real.py::"
 
 # tests/test_quality.py
 HELDOUT_SEED = 999_001  # DataConfig(size=128)
@@ -227,20 +237,81 @@ def ood_report(family, model, dtype: torch.dtype) -> dict:
     return report
 
 
+def ood_checks(report: dict) -> dict:
+    """{node id of the reference's gate test: failure message, or None
+    where the gate holds} of the OOD gates in ``report``."""
+    out = {f"{OOD_TESTS}test_flagship_ood_gain[{k}]": None if report[k] > v else f"{k}: {report[k]:.3f} <= {v}"
+           for k, v in OOD_GATES.items()}
+    motion = report["motion_per_image"]
+    out[f"{OOD_TESTS}test_flagship_motion_deblur_gain"] = (
+        None if motion >= MOTION_MEAN_MIN else f"motion per image {motion:.3f} < {MOTION_MEAN_MIN}")
+    mean, worst = report["clean_mean_mad"], report["clean_worst_mad"]
+    harm = [f"clean mean {mean:.3f} >= {OOD_CLEAN_MEAN_MAX}"] if not mean < OOD_CLEAN_MEAN_MAX else []
+    harm += [f"clean worst {worst:.3f} >= {OOD_CLEAN_WORST_MAX}"] if not worst < OOD_CLEAN_WORST_MAX else []
+    out[f"{OOD_TESTS}test_flagship_ood_clean_no_harm"] = "; ".join(harm) or None
+    return out
+
+
 def ood_failures(report: dict) -> list[str]:
     """The OOD gates ``report`` misses, each with its value and bar."""
-    out = [f"{k}: {report[k]:.3f} <= {v}" for k, v in OOD_GATES.items() if not report[k] > v]
-    if not report["motion_per_image"] >= MOTION_MEAN_MIN:
-        out.append(f"motion per image {report['motion_per_image']:.3f} < {MOTION_MEAN_MIN}")
-    if not report["clean_mean_mad"] < OOD_CLEAN_MEAN_MAX:
-        out.append(f"clean mean {report['clean_mean_mad']:.3f} >= {OOD_CLEAN_MEAN_MAX}")
-    if not report["clean_worst_mad"] < OOD_CLEAN_WORST_MAX:
-        out.append(f"clean worst {report['clean_worst_mad']:.3f} >= {OOD_CLEAN_WORST_MAX}")
+    return [m for m in ood_checks(report).values() if m]
+
+
+def real_report(model, dtype: torch.dtype) -> dict:
+    """Every real-photo gate's value on the classifier-conditioned backbone
+    (tests/test_quality_real.py's path): {class: gain}, and the clean
+    patches' mean and worst per-image absolute error in levels. Raises where
+    the machine holds no real-photo source (``realphoto.available_sources``)."""
+    report = {}
+    for name in REAL_GATES:
+        degraded, clean = real_eval_batch(REAL_SEED, N, SIZE, name)
+        report[name] = psnr(classified_forward(model, degraded, dtype), clean) - psnr(degraded, clean)
+    clean = real_clean_patches(np.random.default_rng(REAL_SEED + 1), N, SIZE)
+    per_mad = per_image_mad(classified_forward(model, clean, dtype), clean)
+    report["clean_mean_mad"], report["clean_worst_mad"] = float(per_mad.mean()), float(per_mad.max())
+    return report
+
+
+def real_checks(report: dict) -> dict:
+    """{node id: failure message or None} of the real-photo gates in ``report``."""
+    out = {f"{REAL_TESTS}test_real_photo_gain[{k}-{v}]": None if report[k] >= v else f"real {k}: {report[k]:.3f} < {v}"
+           for k, v in REAL_GATES.items()}
+    mean, worst = report["clean_mean_mad"], report["clean_worst_mad"]
+    ok = mean <= REAL_CLEAN_MEAN_MAX and worst <= REAL_CLEAN_WORST_MAX
+    out[f"{REAL_TESTS}test_real_photo_clean_harm_bounded"] = None if ok else f"real clean mean {mean:.3f}, worst {worst:.3f}"
     return out
 
 
 def per_image_mad(pred, clean) -> np.ndarray:
     return np.mean(np.abs(host(pred) - host(clean)), axis=(1, 2, 3)) * 255.0
+
+
+def flagship_report(model, rich, dtype: torch.dtype, device) -> dict:
+    """The flagship's in-distribution gate values: its gain on the rich
+    held-out batch ``rich`` and the near-clean harm at each seed."""
+    out = {"flagship_gain": flagship_gain(model, rich[0], rich[1], rich[2], dtype)}
+    for seed in NEAR_CLEAN_SEEDS:
+        near, clean = near_clean(seed, device)
+        out[f"near_clean_{seed}_psnr"], out[f"near_clean_{seed}_mad"] = near_clean_harm(model, near, clean, dtype)
+    return out
+
+
+def sr_report(name: str, model, rich, photo, dtype: torch.dtype) -> dict:
+    """One SR family's gate values: gain over nearest on both held-out
+    batches, and the smooth no-hallucination numbers."""
+    out = {f"{name}_{dist}_gain": sr_gain_over_nearest(model, degraded, clean, dtype)
+           for dist, (degraded, clean, _) in (("rich", rich), ("photo", photo))}
+    out[f"{name}_smooth"] = sr_smooth(model, dtype)
+    return out
+
+
+def diffusion_report(model, rich, photo, dtype: torch.dtype, device) -> dict:
+    """The diffusion family's gain on both held-out batches from the gate's noise."""
+    out = {}
+    for dist, (degraded, clean, cond) in (("rich", rich), ("photo", photo)):
+        noise = diffusion_noise(degraded.shape, device, dtype)
+        out[f"diffusion_{dist}_gain"] = diffusion_gain(model, degraded, clean, cond, noise, dtype)
+    return out
 
 
 def in_distribution_report(models: dict, dtype: torch.dtype, device) -> dict:
@@ -249,38 +320,69 @@ def in_distribution_report(models: dict, dtype: torch.dtype, device) -> dict:
     sr-x2, sr-x4 and diffusion-restore to their loaded modules."""
     rich = heldout(HELDOUT_SEED, False, device)
     photo = heldout(HELDOUT_PHOTO_SEED, True, device)
-    flagship = models["restore-unet"]
-    out = {"flagship_gain": flagship_gain(flagship, rich[0], rich[1], rich[2], dtype)}
-    for seed in NEAR_CLEAN_SEEDS:
-        near, clean = near_clean(seed, device)
-        out[f"near_clean_{seed}_psnr"], out[f"near_clean_{seed}_mad"] = near_clean_harm(flagship, near, clean, dtype)
+    out = flagship_report(models["restore-unet"], rich, dtype, device)
     for name in ("sr-x2", "sr-x4"):
-        for dist, (degraded, clean, _) in (("rich", rich), ("photo", photo)):
-            out[f"{name}_{dist}_gain"] = sr_gain_over_nearest(models[name], degraded, clean, dtype)
-        out[f"{name}_smooth"] = sr_smooth(models[name], dtype)
-    for dist, (degraded, clean, cond) in (("rich", rich), ("photo", photo)):
-        noise = diffusion_noise(degraded.shape, device, dtype)
-        out[f"diffusion_{dist}_gain"] = diffusion_gain(models["diffusion-restore"], degraded, clean, cond, noise, dtype)
+        out.update(sr_report(name, models[name], rich, photo, dtype))
+    out.update(diffusion_report(models["diffusion-restore"], rich, photo, dtype, device))
+    return out
+
+
+def in_distribution_checks(report: dict) -> dict:
+    """{node id: failure message or None} of the in-distribution gates whose
+    values ``report`` holds (all four families' or one family's)."""
+    out = {}
+    if "flagship_gain" in report:
+        gain = report["flagship_gain"]
+        out[f"{QUALITY_TESTS}test_flagship_restoration_gain"] = (
+            None if gain > FLAGSHIP_GAIN_MIN else f"flagship gain {gain:.3f} <= {FLAGSHIP_GAIN_MIN}")
+        for seed in NEAR_CLEAN_SEEDS:
+            p, m = report[f"near_clean_{seed}_psnr"], report[f"near_clean_{seed}_mad"]
+            ok = p >= NEAR_CLEAN_PSNR_MIN and m <= NEAR_CLEAN_MAD_MAX
+            out[f"{QUALITY_TESTS}test_flagship_bounded_harm_on_near_clean[{seed}]"] = (
+                None if ok else f"near-clean {seed}: {p:.3f} dB, mad {m:.3f}")
+    for name in ("sr-x2", "sr-x4"):
+        if f"{name}_smooth" not in report:
+            continue
+        tests = {"rich": f"test_{name.replace('-', '_')}_beats_nearest_baseline",
+                 "photo": f"test_sr_photo_distribution_gain[{name}]"}
+        for dist, bar in SR_GAIN_MIN.items():
+            gain = report[f"{name}_{dist}_gain"]
+            out[QUALITY_TESTS + tests[dist]] = None if gain > bar else f"{name} {dist} gain {gain:.3f} <= {bar}"
+        smooth = report[f"{name}_smooth"]
+        out[f"{QUALITY_TESTS}test_sr_no_texture_hallucination_on_smooth[{name}]"] = (
+            None if smooth_holds(smooth) else f"{name} smooth {smooth}")
+    for dist, fixture in (("rich", "heldout"), ("photo", "heldout_photo")):
+        if f"diffusion_{dist}_gain" not in report:
+            continue
+        gain, bar = report[f"diffusion_{dist}_gain"], DIFFUSION_GAIN_MIN[dist]
+        out[f"{QUALITY_TESTS}test_diffusion_restoration_gain[{fixture}-{bar}]"] = (
+            None if gain > bar else f"diffusion {dist} gain {gain:.3f} <= {bar}")
     return out
 
 
 def in_distribution_failures(report: dict) -> list[str]:
     """The in-distribution gates ``report`` misses, each with its value and bar."""
-    out = []
-    if not report["flagship_gain"] > FLAGSHIP_GAIN_MIN:
-        out.append(f"flagship gain {report['flagship_gain']:.3f} <= {FLAGSHIP_GAIN_MIN}")
-    for seed in NEAR_CLEAN_SEEDS:
-        p, m = report[f"near_clean_{seed}_psnr"], report[f"near_clean_{seed}_mad"]
-        if not (p >= NEAR_CLEAN_PSNR_MIN and m <= NEAR_CLEAN_MAD_MAX):
-            out.append(f"near-clean {seed}: {p:.3f} dB, mad {m:.3f}")
-    for name in ("sr-x2", "sr-x4"):
-        for dist, bar in SR_GAIN_MIN.items():
-            if not report[f"{name}_{dist}_gain"] > bar:
-                out.append(f"{name} {dist} gain {report[f'{name}_{dist}_gain']:.3f} <= {bar}")
-        if not smooth_holds(report[f"{name}_smooth"]):
-            out.append(f"{name} smooth {report[f'{name}_smooth']}")
-    for dist, bar in DIFFUSION_GAIN_MIN.items():
-        if not report[f"diffusion_{dist}_gain"] > bar:
-            out.append(f"diffusion {dist} gain {report[f'diffusion_{dist}_gain']:.3f} <= {bar}")
-    return out
+    return [m for m in in_distribution_checks(report).values() if m]
 
+
+def family_gates(family_name: str, model, dtype: torch.dtype, device) -> dict:
+    """{node id of the reference's gate test: failure message, or None where
+    the gate holds} of every gate of tests/test_quality*.py that reads
+    ``family_name``'s model, and of no other family's: the flagship's
+    held-out, near-clean, OOD and real-photo gates, each SR family's three,
+    the diffusion family's two; restore-unet-small has none. The real-photo
+    gates are left out, as the reference's skip, where the machine holds no
+    real-photo source."""
+    if family_name not in ("restore-unet", "sr-x2", "sr-x4", "diffusion-restore"):
+        return {}
+    rich = heldout(HELDOUT_SEED, False, device)
+    if family_name == "restore-unet":
+        out = in_distribution_checks(flagship_report(model, rich, dtype, device))
+        out.update(ood_checks(ood_report(family_name, model, dtype)))
+        if available_sources():
+            out.update(real_checks(real_report(model, dtype)))
+        return out
+    photo = heldout(HELDOUT_PHOTO_SEED, True, device)
+    if family_name == "diffusion-restore":
+        return in_distribution_checks(diffusion_report(model, rich, photo, dtype, device))
+    return in_distribution_checks(sr_report(family_name, model, rich, photo, dtype))

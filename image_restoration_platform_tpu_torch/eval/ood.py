@@ -9,6 +9,10 @@ Port of scripts/eval_ood.py with the same flags, the same JSON schema, and
 
     python -m image_restoration_platform_tpu_torch.eval.ood [--n 48] [--size 128]
         [--family restore-unet] [--seed 2026] [--corpus ood|real] [--device cpu]
+        [--weights-dir DIR]
+
+``evaluate`` returns the same JSON as a dict, for a weights directory
+given in the call (the retrain chain's ranker and gate call it in process).
 
 train/ood.py and train/realphoto.py draw from numpy, so the same seeds give
 the reference script's inputs on any machine.
@@ -21,6 +25,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from ..models import get_family
 from ..models import weights as W
@@ -29,20 +34,12 @@ from ..train.ood import OOD_DEGRADATIONS, ood_clean, ood_eval_batch
 from .common import DTYPES, device_args, host, load_model, log, psnr, serving_forward
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--n", type=int, default=48)
-    ap.add_argument("--size", type=int, default=128)
-    ap.add_argument("--family", default="restore-unet")
-    ap.add_argument("--seed", type=int, default=2026)
-    ap.add_argument("--corpus", choices=("ood", "real"), default="ood",
-                    help="ood = procedural disjoint generators (train/ood.py); real = "
-                    "real photographs found on the machine (train/realphoto.py)")
-    device_args(ap)
-    args = ap.parse_args(argv)
-    device, dtype = resolve_device(args.device), DTYPES[args.dtype]
-
-    if args.corpus == "real":
+def evaluate(family_name: str = "restore-unet", n: int = 48, size: int = 128, seed: int = 2026, corpus: str = "ood",
+             device="cuda", dtype: torch.dtype = torch.bfloat16, weights_dir: str | None = None) -> dict:
+    """The script's JSON as a dict, for ``family_name``'s weights in
+    ``weights_dir`` (default: IRP_WEIGHTS_DIR, else weights/) on ``device``."""
+    device = resolve_device(device)
+    if corpus == "real":
         from ..train.realphoto import available_sources
         from ..train.realphoto import real_clean_patches as clean_fn
         from ..train.realphoto import real_eval_batch as batch_fn
@@ -51,28 +48,24 @@ def main(argv=None) -> None:
     else:
         clean_fn, batch_fn = ood_clean, ood_eval_batch
 
-    path = W.weights_path(args.family)
-    if not os.path.exists(path):
-        log(f"no shipped weights at {path}")
-        raise SystemExit(1)
-    family = get_family(args.family)
-    model = load_model(args.family, device, dtype)
+    family = get_family(family_name)
+    model = load_model(family_name, device, dtype, weights_dir)
 
     def serve(x):
         return host(serving_forward(family, model, x, dtype))
 
     report = {}
-    log(f"family={args.family} n={args.n} size={args.size} corpus={args.corpus} device={device} dtype={args.dtype}")
+    log(f"family={family_name} n={n} size={size} corpus={corpus} device={device} dtype={str(dtype)[6:]}")
     for name in OOD_DEGRADATIONS:
-        degraded, clean = batch_fn(args.seed, args.n, args.size, name)
+        degraded, clean = batch_fn(seed, n, size, name)
         pred = serve(degraded)
         p_in, p_out = psnr(degraded, clean), psnr(pred, clean)
         report[name] = {"psnr_in": round(p_in, 2), "psnr_out": round(p_out, 2), "gain_db": round(p_out - p_in, 2)}
         log(f"  {name:20s} in {p_in:6.2f} dB -> out {p_out:6.2f} dB  (gain {p_out - p_in:+.2f} dB)")
 
     # bounded harm on clean OOD inputs, in aggregate and per image
-    rng = np.random.default_rng(args.seed + 1)
-    clean = clean_fn(rng, args.n, args.size)
+    rng = np.random.default_rng(seed + 1)
+    clean = clean_fn(rng, n, size)
     pred = serve(clean)
     harm_psnr = psnr(pred, clean)
     mad = float(np.mean(np.abs(pred - clean))) * 255.0
@@ -90,7 +83,27 @@ def main(argv=None) -> None:
         f"p95 {report['clean_no_harm']['p95_mad_255']:.2f}/255  "
         f"worst {per_mad[worst]:.2f}/255 (img mean {clean[worst].mean():.2f})"
     )
-    print(json.dumps({"family": args.family, "n": args.n, "size": args.size, "corpus": args.corpus, "ood": report}))
+    return {"family": family_name, "n": n, "size": size, "corpus": corpus, "ood": report}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=48)
+    ap.add_argument("--size", type=int, default=128)
+    ap.add_argument("--family", default="restore-unet")
+    ap.add_argument("--seed", type=int, default=2026)
+    ap.add_argument("--corpus", choices=("ood", "real"), default="ood",
+                    help="ood = procedural disjoint generators (train/ood.py); real = "
+                    "real photographs found on the machine (train/realphoto.py)")
+    device_args(ap)
+    args = ap.parse_args(argv)
+    device, dtype = resolve_device(args.device), DTYPES[args.dtype]
+    path = W.weights_path(args.family, args.weights_dir)
+    if not os.path.exists(path):
+        log(f"no shipped weights at {path}")
+        raise SystemExit(1)
+    print(json.dumps(evaluate(args.family, args.n, args.size, args.seed, args.corpus, device, dtype,
+                              args.weights_dir)))
 
 
 if __name__ == "__main__":

@@ -98,5 +98,7 @@ def default_weights_dir() -> str:
     )
 
 
-def weights_path(family_name: str) -> str:
-    return os.path.join(default_weights_dir(), f"{family_name}.npz")
+def weights_path(family_name: str, weights_dir: str | None = None) -> str:
+    """``<weights_dir>/<family>.npz``; ``weights_dir`` defaults to
+    ``default_weights_dir()`` (IRP_WEIGHTS_DIR, else the repo's weights/)."""
+    return os.path.join(weights_dir or default_weights_dir(), f"{family_name}.npz")

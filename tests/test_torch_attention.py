@@ -210,6 +210,13 @@ def test_launch_plan_of_the_paths_shapes(shape, dtype):
         # restore-unet 256 b2 / b4 serving
         ((2, 4, 1024, 64), "bfloat16"): ("wgmma_q64", 64, 128, 4, 256, 8, "grid", 1),
         ((4, 4, 1024, 64), "bfloat16"): ("wgmma_q192", 192, 128, 4, 512, 0, "grid", 1),
+        # the retrain chain at 128 px: the gate's OOD eval at b48 (384 units of
+        # 128 queries on a persistent grid), the ranker at b4 (64 units of 64
+        # queries, a block a unit), the train entry point's evals at b16 (128
+        # units of 128 queries)
+        ((48, 4, 256, 64), "bfloat16"): ("wgmma_q192", 192, 128, 2, 512, 0, "persistent", 1),
+        ((4, 4, 256, 64), "bfloat16"): ("wgmma_q64", 64, 128, 2, 256, 16, "grid", 1),
+        ((16, 4, 256, 64), "bfloat16"): ("wgmma_q192", 192, 128, 2, 512, 0, "grid", 1),
     }[(shape, dtype)]
     assert (plan.variant, plan.block_q, plan.block_k, plan.stages, plan.threads, plan.full_heads, plan.schedule,
             plan.splits) == expected

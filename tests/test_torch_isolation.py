@@ -49,6 +49,8 @@ NEW_MODULES = {
     "config", "obs.metrics", "obs.tracing", "ops.resize", "ops.stats", "problem", "serve.blobs", "serve.credits",
     "serve.durable", "serve.idempotency", "serve.jobs", "serve.moderation", "serve.queue", "serve.ratelimit",
     "serve.redis_store", "serve.store", "serve.vision", "serve.warmup", "utils.measure_guard", "utils.retry",
+    "retrain", "retrain.chip_queue", "retrain.rank_candidates", "retrain.validate_staging",
+    "tools", "tools.smoke", "tools.loadtest", "tools.validate_secrets",
 }
 
 # the service graph and the submission path, in an interpreter without aiohttp
@@ -64,6 +66,20 @@ try:
 except ImportError:
     print("aiohttp refused")
 print(sorted(m for m, v in sys.modules.items() if m.startswith("aiohttp") and v is not None))
+"""
+
+
+# the retrain chain and the operator tools, in an interpreter without aiohttp
+# (the card's machine has none): every module imports
+_TOOLS_NO_AIOHTTP_PROBE = f"""
+import importlib, pkgutil, sys
+sys.modules["aiohttp"] = None
+import {PORT}.retrain, {PORT}.tools
+names = [m.name for pkg in ({PORT}.retrain, {PORT}.tools)
+         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(len(names), sorted(m for m, v in sys.modules.items() if m.startswith("aiohttp") and v is not None))
 """
 
 
@@ -87,6 +103,24 @@ def test_service_graph_imports_without_aiohttp():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[:2] == ["aiohttp refused", "[]"]
+
+
+def test_retrain_and_tools_import_without_aiohttp():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _TOOLS_NO_AIOHTTP_PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "6 []"
+
+
+def test_no_port_manifest_names_the_jax_package():
+    """The port's data files (the retrain queues) run the port's modules only."""
+    for root, _dirs, names in os.walk(os.path.join(REPO, PORT)):
+        for name in names:
+            if name.endswith(".json"):
+                text = open(os.path.join(root, name)).read()
+                assert f"{JAX_PKG}." not in text and f"{JAX_PKG}/" not in text, name
 
 
 def _imported_roots(path: str) -> set[str]:
