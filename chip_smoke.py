@@ -22,7 +22,10 @@ failure (exit code 1):
    of 128; SIMT f32; each on unit-variance and peaked-logit inputs, and every
    plan once more at small shapes, FORCED_PLANS; blend: vector and
    scalar on the 2K -> 4K grid, a clamped grid, overlap = T/2, odd origins
-   and a single tile), and times the kernel, the plain version and the
+   and a single tile; the fused GroupNorm's two kernels at GN_SHAPES in
+   bf16: the moments' sums within GN_SUM_RTOL of the plain f32 sums on
+   unit-variance and offset inputs, the FiLM prologue's y and the affine +
+   SiLU bit for bit), and times the kernel, the plain version and the
    library call that computes the same function beside the computed bound
    and, for attention, the exponential limit ``exp_ms`` (CUDA events around
    10 back-to-back calls queued behind a sleep kernel, so host dispatch is
@@ -171,6 +174,10 @@ failure (exit code 1):
 Every engine and trainer replays CUDA graphs by default (the executable
 tier), so phases 3-8 run on graphs; the launch counts read the kernels' counters,
 which every graph replay advances by the launches its capture recorded.
+Every path that runs a UNet also reads the fused GroupNorm kernels' counts
+(``_read_gn``: restore, diffusion and fusion, the service graph, train, the
+mesh restores, the quality gates, bench, the graph phase, the fold phase,
+the promotion's ranker and gate and its payloads' logs); a count of 0 fails.
 Phase 2 also holds the kernel at the training shapes ([32, 4, 256, 64] and
 [32, 4, 1024, 64] bf16) and checks the gradients through ``FlashAttention``
 (the kernel's forward, the plain backward) against autograd through the
@@ -229,6 +236,27 @@ KERNEL_SHAPES = [  # (shape [N,H,T,D], dtype, where the path uses it)
     ((4, 4, 256, 64), "bfloat16", "retrain ranker: eval.ood and eval.flagship_quick at --n 4, restore-unet 128"),
     ((16, 4, 256, 64), "bfloat16", "the train entry point's held-out evals, restore-unet 128 b16"),
 ]
+# the fused GroupNorm (ops/cuda/group_norm.py): NHWC bf16 tensors at the
+# main path's GroupNorm sites, (shape, SiLU after the affine, where). Every
+# row runs the moments kernel plain and with the FiLM prologue, and the
+# affine kernel; the W-folded restore UNet (SERVE_FOLD_W) doubles C and
+# halves W, and the decoder's concat parts are these shapes too
+GN_SHAPES = [
+    ((8, 256, 128, 128), True, "restore-unet 512 b8 folded, level 0 (and the level-2 up-block's skip part)"),
+    ((8, 128, 64, 256), True, "restore-unet 512 b8 folded, level 1 (and the up-blocks' parts)"),
+    ((8, 64, 32, 512), True, "restore-unet 512 b8 folded, level 2 and the bottleneck (the first concat: two parts)"),
+    ((8, 64, 64, 256), False, "restore-unet 512 b8: the attention's GroupNorm, unfolded (no SiLU)"),
+    ((1, 128, 64, 128), True, "restore-unet 256 b1 folded, level 0"),
+    ((32, 64, 64, 64), True, "training restore-unet 128 b32, unfolded, level 0"),
+]
+# restore-unet's norm_groups; the moments' sums are held to the plain f32
+# sums within GN_SUM_RTOL relative to the sum of |x| (s1: the sum of a
+# zero-mean input cancels, so its own size is no scale) and to s2 itself;
+# inputs of unit variance, and offset ones (mean 4, std 0.1), where
+# E[x^2] - mu^2 cancels to 1/1600 of E[x^2] and the clamp must hold it >= 0
+GN_GROUPS, GN_SUM_RTOL = 32, 1e-5
+GN_INPUTS = {"unit": (0.0, 1.0), "offset": (4.0, 0.1)}
+GN_MAIN_SHAPE = (8, 256, 128, 128)
 # the gradient check: dq, dk, dv through FlashAttention (kernel forward, plain
 # backward) against autograd through the plain forward, at the training shape
 GRAD_SHAPE = (32, 4, 256, 64)
@@ -498,7 +526,118 @@ def blend_bound_ms(n_tiles: int, t: int, c: int, out_h: int, out_w: int) -> tupl
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def gn_bound_ms(shape, variant: str, silu: bool = True) -> tuple[float, str]:
+    """The least time of one fused GroupNorm call on bf16 [N, H, W, C]:
+    each input read once and each output written once (the [N, C] f32
+    vectors included) over the memory rate, against its f32 operations
+    (moments: add and multiply-add an element; the FiLM prologue three more;
+    the affine a multiply and an add, the SiLU four) over the f32 peak."""
+    from image_restoration_platform_tpu_torch.utils.peaks import HBM_BYTES_PER_S, PEAK_FLOPS
+
+    n, h, w, c = shape
+    elems, vec = n * h * w * c, 4 * n * c
+    if variant == "moments":
+        nbytes, flops = 2 * elems + 2 * vec, 3 * elems
+    elif variant == "film":
+        nbytes, flops = 4 * elems + 2 * c + 4 * n * c + 2 * vec, 6 * elems
+    else:
+        nbytes, flops = 4 * elems + 2 * vec, (6 if silu else 2) * elems
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 # ----------------------------------------------------------------- phases
+
+
+def phase_gn_kernels(torch, report):
+    """The fused GroupNorm kernels at the main path's shapes in bf16: the
+    moments against the plain f32 sums (and the clamped group variance on
+    offset inputs), the FiLM prologue's y and the affine + SiLU bit for bit
+    against their plain versions; then the kernels, the plain versions and
+    the yardstick F.silu(F.group_norm(...)) (two library calls, on the NCHW
+    channels_last view of the same tensor) timed beside the byte bound."""
+    from image_restoration_platform_tpu_torch.models import nn as L
+    from image_restoration_platform_tpu_torch.ops.cuda import group_norm as G
+
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(shape, scale=1.0, loc=0.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale + loc).to(dtype)
+
+    def sum_errors(got, want, x):
+        mag = x.float().abs().sum(dim=(1, 2))
+        return {"s1_err_over_sum_abs": float(((got[0] - want[0]).abs() / mag).max()),
+                "s2_rel_err": float(((got[1] - want[1]).abs() / want[1]).max()),
+                "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want))}
+
+    rows = []
+    for shape, silu, where in GN_SHAPES:
+        n, h, w, c = shape
+        g = L.gn_groups(c, GN_GROUPS)
+        cnt = h * w * (c // g)
+        x = randn(shape)
+        checks = {}
+        for inputs, (loc, scale) in GN_INPUTS.items():
+            xi = x if inputs == "unit" else randn(shape, scale, loc)
+            got, want = G.moments_kernel(xi), G.moments_reference(xi)
+            torch.cuda.synchronize()
+            row = sum_errors(got, want, xi)
+
+            def group_var(s1, s2):
+                mean = s1.reshape(n, g, -1).sum(-1) / cnt
+                return torch.clamp(s2.reshape(n, g, -1).sum(-1) / cnt - mean * mean, min=0.0)
+
+            var64 = xi.double().reshape(n, h * w, g, c // g).var(dim=(1, 3), unbiased=False)
+            var_k, var_p = group_var(*got), group_var(*want)
+            row.update(var_min=float(var_k.min()), var_rel_err=float(((var_k - var64).abs() / var64).max()),
+                       plain_var_rel_err=float(((var_p - var64).abs() / var64).max()))
+            checks[f"moments_{inputs}"] = row
+            check(row["s1_err_over_sum_abs"] <= GN_SUM_RTOL and row["s2_rel_err"] <= GN_SUM_RTOL,
+                  f"gn_moments {shape} {inputs}: {row}")
+            check(row["var_min"] >= 0.0 and bool(torch.isfinite(torch.rsqrt(var_k + 1e-5)).all()),
+                  f"gn_moments {shape} {inputs}: the clamped group variance {row}")
+        cb, gb = randn((c,), 0.3), randn((n, 2 * c), 0.5)
+        got, want = G.moments_kernel(x, cb, gb), G.film_moments_reference(x, cb, gb)
+        torch.cuda.synchronize()
+        checks["film"] = {"y_equal": bool(torch.equal(got[0], want[0])), **sum_errors(got[1:], want[1:], want[0])}
+        check(checks["film"]["y_equal"], f"gn_moments FiLM prologue {shape}: y differs from the plain chain")
+        check(checks["film"]["s1_err_over_sum_abs"] <= GN_SUM_RTOL and checks["film"]["s2_rel_err"] <= GN_SUM_RTOL,
+              f"gn_moments FiLM prologue {shape}: {checks['film']}")
+        weight, bias = randn((c,), 0.1, 1.0, torch.float32), randn((c,), 0.1, dtype=torch.float32)
+        sc, bi = L._folded_affine(weight, bias, *L._group_moments(*G.moments_reference(x), g, cnt, 1e-5))
+        out, ref = G.affine_silu_kernel(x, sc, bi, silu), G.affine_silu_reference(x, sc, bi, silu)
+        torch.cuda.synchronize()
+        checks["affine"] = {"equal": bool(torch.equal(out, ref)),
+                            "max_abs_err": float((out.float() - ref.float()).abs().max())}
+        check(checks["affine"]["equal"], f"gn_affine_silu {shape} silu={silu}: {checks['affine']}")
+
+        xc, wb, bb = x.permute(0, 3, 1, 2), weight.to(bf16), bias.to(bf16)  # NCHW, channels_last
+
+        def library():
+            o = F.group_norm(xc, g, wb, bb)
+            return F.silu(o) if silu else o
+
+        timed = {}
+        for variant, kernel, plain in (
+            ("moments", lambda: G.moments_kernel(x), lambda: G.moments_reference(x)),
+            ("film", lambda: G.moments_kernel(x, cb, gb), lambda: G.film_moments_reference(x, cb, gb)),
+            ("affine", lambda: G.affine_silu_kernel(x, sc, bi, silu), lambda: G.affine_silu_reference(x, sc, bi, silu)),
+        ):
+            bound, bound_by = gn_bound_ms(shape, variant, silu)
+            timed[variant] = {"ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain, groups=10),
+                              "bound_ms": bound, "bound_by": bound_by}
+        row = {"kernel": "fused_group_norm", "shape": list(shape), "dtype": "bfloat16", "silu": silu, "groups": g,
+               "path": where, "checks": checks, **timed,
+               "library_ms": time_ms(torch, library, groups=10),
+               "library": "F.silu(F.group_norm(x)): two calls" if silu else "F.group_norm(x): one call"}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del x, out, ref, got, want
+    torch.cuda.empty_cache()
+    report["gn_checks"] = rows
+    return rows
 
 
 def phase_blend_kernel(torch, report):
@@ -816,10 +955,12 @@ def phase_slice(torch, np, report, card):
         counters = get_counters()
         before = counters.snapshot()
         _zero_launches(flash_kernel)
+        _zero_gn()
         with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
             futures = {name: pool.submit(svc.restore, data) for name, (data, _) in reqs.items()}
             results = {name: f.result() for name, f in futures.items()}
         launches = _read_launches("flash_attention", flash_kernel)
+        gn_launches = _read_gn("restore")
         after = counters.snapshot()
         delta = _counter_delta(before, after)
         forwards = int(delta.get("restore_batches.256", 0) + delta.get("restore_batches.512", 0))
@@ -837,7 +978,7 @@ def phase_slice(torch, np, report, card):
         check(engine.compile_count == warmup["compile_count"],
               f"the restore path built {engine.compile_count - warmup['compile_count']} executables after the warm-up")
         print(json.dumps({"slice": {"requests": len(results), "batches": batches, "forwards_le_512": forwards,
-                                    "attention_launches": launches,
+                                    "attention_launches": launches, "fused_norm_launches": gn_launches,
                                     "host_syncs": {k: v for k, v in delta.items() if k.startswith("host_sync")},
                                     "stage_fires": {k: v for k, v in delta.items() if k.startswith("stage_fires")},
                                     "egress": "yuv420" if imageio.native_available() else "rgb"}}),
@@ -887,7 +1028,7 @@ def phase_slice(torch, np, report, card):
 
 
 # launches of each kernel variant on the driven paths, summed over the paths
-PATH_LAUNCHES_BY_VARIANT: dict = {"flash_attention": {}, "blend_tiles": {}}
+PATH_LAUNCHES_BY_VARIANT: dict = {"flash_attention": {}, "blend_tiles": {}, "gn_moments": {}, "gn_affine_silu": {}}
 
 
 def _zero_launches(kernel) -> None:
@@ -904,6 +1045,32 @@ def _read_launches(name: str, kernel) -> int:
         total[variant] = total.get(variant, 0) + n
     check(sum(kernel.launches_by_variant.values()) == kernel.launches, f"{name}: counts by variant disagree")
     return kernel.launches
+
+
+# the fused GroupNorm kernels' launches on each UNet path, read by _read_gn
+GN_PATH_LAUNCHES: dict = {"gn_moments": {}, "gn_affine_silu": {}}
+
+
+def _gn_kernels() -> dict:
+    from image_restoration_platform_tpu_torch.ops.cuda import group_norm as G
+
+    return {"gn_moments": G.moments_kernel, "gn_affine_silu": G.affine_silu_kernel}
+
+
+def _zero_gn() -> None:
+    """The fused GroupNorm kernels' counts to 0 just before a UNet path."""
+    for kernel in _gn_kernels().values():
+        _zero_launches(kernel)
+
+
+def _read_gn(path: str) -> dict:
+    """Both fused GroupNorm kernels' counts just after a UNet path: each
+    must have launched, and the count joins GN_PATH_LAUNCHES under ``path``."""
+    counts = {name: _read_launches(name, kernel) for name, kernel in _gn_kernels().items()}
+    for name, n in counts.items():
+        GN_PATH_LAUNCHES[name][path] = GN_PATH_LAUNCHES[name].get(path, 0) + n
+    check(all(n > 0 for n in counts.values()), f"{path}: a fused GroupNorm kernel was not launched: {counts}")
+    return counts
 
 
 def _counter_delta(before: dict, after: dict) -> dict:
@@ -1021,12 +1188,16 @@ def phase_diffusion_fusion(np, report, svc, reqs):
     counters = get_counters()
     before = counters.snapshot()
     _zero_launches(flash_kernel)
+    _zero_gn()
     d256 = svc.restore(reqs["jpeg256"][0], options=options)
     after256 = flash_kernel.launches
     d512 = svc.restore(reqs["clean512"][0], options=options)
     after512 = flash_kernel.launches
+    gn_launches = {"diffusion": _read_gn("diffusion")}
+    _zero_gn()
     fused = svc.restore_fusion(fusion_images, "fuse these captures")
     launches = _read_launches("flash_attention", flash_kernel)
+    gn_launches["fusion"] = _read_gn("fusion")
     delta = _counter_delta(before, counters.snapshot())
 
     for name, res, src in (("diffusion256", d256, reqs["jpeg256"][0]), ("diffusion512", d512, reqs["clean512"][0]),
@@ -1048,7 +1219,7 @@ def phase_diffusion_fusion(np, report, svc, reqs):
     check(launches == after512 + 1, f"fusion of three 512 captures: {launches - after512} attention launches")
     out = {"attention_launches": {"diffusion256": after256, "diffusion512": after512 - after256,
                                   "fusion512_k3": launches - after512},
-           "sampler_steps": steps,
+           "fused_norm_launches": gn_launches, "sampler_steps": steps,
            "ms": {"diffusion256": d256["timings"]["total_ms"], "diffusion512": d512["timings"]["total_ms"],
                   "fusion512_k3": fused["timings"]["total_ms"]}}
     print(json.dumps({"diffusion_fusion_slice": out}), flush=True)
@@ -1123,6 +1294,7 @@ def phase_service_graph(torch, np, report, card):
         before = counters.snapshot()
         _zero_launches(flash_kernel)
         _zero_launches(blend_kernel)
+        _zero_gn()
 
         def submit(index):
             kind, images, options, sync = jobs[index]
@@ -1144,6 +1316,7 @@ def phase_service_graph(torch, np, report, card):
             time.sleep(0.005)
         launches = {"flash_attention": _read_launches("flash_attention", flash_kernel),
                     "blend_tiles": _read_launches("blend_tiles", blend_kernel)}
+        out["fused_norm_launches"] = _read_gn("service_graph")
         delta = _counter_delta(before, counters.snapshot())
 
         latency, by_kind, outside = [], {}, []
@@ -1260,6 +1433,8 @@ def _kernel_split(torch, prof, skip: tuple = ("Optimizer.",)) -> tuple[float, in
         low = name.lower()
         if "flash_fwd" in low:
             return "attention_kernel"
+        if "gn_moments" in low or "gn_affine_silu" in low:
+            return "fused_group_norm"
         if "memcpy" in low or "memset" in low:
             return "copies"
         if any(k in low for k in ("conv", "gemm", "cudnn", "cutlass", "xmma", "implicit", "nhwc", "nchw", "sm90")):
@@ -1483,9 +1658,11 @@ def phase_train(torch, np, report, card):
         for i, mode in enumerate(("eager", "graph", "graph", "eager")):
             if i == 1:
                 _zero_launches(flash_kernel)
+                _zero_gn()
             blocks[mode].append(_timed_steps(torch, trainer if mode == "graph" else eager, TRAIN_TIMED_STEPS // 2))
             if i == 2:
                 launches = _read_launches("flash_attention", flash_kernel)
+                out["fused_norm_launches"] = _read_gn("train")
         check(trainer.compile_count == builds, f"a timed step built an executable: {builds} -> "
                                                f"{trainer.compile_count}")
         check(launches == TRAIN_TIMED_STEPS, f"attention launches {launches} != train steps {TRAIN_TIMED_STEPS}")
@@ -1871,10 +2048,12 @@ def phase_mesh(torch, np, report, card):
             check(svc.restore(uploads[0])["success"], f"mesh {name}: warm-up failed")
             before = counters.snapshot()
             _zero_launches(flash_kernel)
+            _zero_gn()
             with ThreadPoolExecutor(max_workers=len(uploads)) as pool:
                 results = list(pool.map(svc.restore, uploads))
             got_out, got_scores, meta = engine.restore_batch(canvas8, is_jpeg=is_jpeg8)
             n = _read_launches("flash_attention", flash_kernel)
+            gn_launches = _read_gn(f"mesh_restore_{name}")
             batches = int(_counter_delta(before, counters.snapshot()).get("restore_batches.512", 0))
         finally:
             batcher.shutdown()
@@ -1883,7 +2062,7 @@ def phase_mesh(torch, np, report, card):
             check(res["metadata"]["sizeBucket"] == 512, f"mesh {name}: bucket {res['metadata']['sizeBucket']}")
         flags = _fire_flags_of(torch, engine, canvas8, is_jpeg8)
         cmp = {**_levels(np, got_out, ref_out), "per_image": _levels_per_image(np, got_out, ref_out),
-               "scores_max_abs": float(np.abs(got_scores - ref_scores).max()),
+               "scores_max_abs": float(np.abs(got_scores - ref_scores).max()), "fused_norm_launches": gn_launches,
                "vs_unsharded_at_shard_batch": _levels(np, got_out, by_shard),
                "unsharded_shard_batch_vs_b8": _levels_per_image(np, by_shard, ref_out),
                "stage_fires": flags.sum(0).tolist(), "batches": batches, "attention_launches": n,
@@ -2241,20 +2420,27 @@ def phase_graphs(torch, np, report, card, engine):
     counters = get_counters()
     rows: list = []
     launches = {"flash_attention": 0, "blend_tiles": 0}
+    gn = _gn_kernels()
 
     def compare(surface: str, run) -> None:
         """``run(e)`` on the graph engine, then on the eager twin: equal
-        arrays and equal launches of both kernels."""
+        arrays and equal launches of every kernel (attention, blend, the
+        two fused GroupNorm kernels)."""
         _zero_launches(flash_kernel)
         _zero_launches(blend_kernel)
+        _zero_gn()
         got = _arrays(run(engine))
-        graph_n = (_read_launches("flash_attention", flash_kernel), _read_launches("blend_tiles", blend_kernel))
+        graph_n = (_read_launches("flash_attention", flash_kernel), _read_launches("blend_tiles", blend_kernel),
+                   *(_read_launches(name, kernel) for name, kernel in gn.items()))
         _zero_launches(flash_kernel)
         _zero_launches(blend_kernel)
+        _zero_gn()
         want = _arrays(run(eager))
-        eager_n = (flash_kernel.launches, blend_kernel.launches)
+        eager_n = (flash_kernel.launches, blend_kernel.launches, *(kernel.launches for kernel in gn.values()))
         launches["flash_attention"] += graph_n[0]
         launches["blend_tiles"] += graph_n[1]
+        for name, n in zip(gn, graph_n[2:]):
+            GN_PATH_LAUNCHES[name]["graphs"] = GN_PATH_LAUNCHES[name].get("graphs", 0) + n
         levels = max(int(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.dtype == np.uint8 else 0
                      for a, b in zip(got, want))
         rows.append({"surface": surface, "equal": all(np.array_equal(a, b) for a, b in zip(got, want)),
@@ -2324,6 +2510,8 @@ def phase_graphs(torch, np, report, card, engine):
         check(op is not None and row["max_levels"] <= 1, f"graph replay differs from eager execution: {row}")
     check(not out["launches_differing"], f"graph and eager launches differ: {out['launches_differing']}")
     check(launches["flash_attention"] > 0 and launches["blend_tiles"] > 0, f"graph phase launches {launches}")
+    check(all(GN_PATH_LAUNCHES[name].get("graphs", 0) > 0 for name in gn),
+          f"graph phase: fused GroupNorm launches {GN_PATH_LAUNCHES}")
     return {"flash_attention": {"graphs": launches["flash_attention"]},
             "blend_tiles": {"graphs": launches["blend_tiles"]}}
 
@@ -2384,9 +2572,11 @@ def phase_quality_bench(torch, np, report, card):
              for name in ("restore-unet", "diffusion-restore")]
     t = time.perf_counter()
     _zero_launches(flash_kernel)
+    _zero_gn()
     ood = G.ood_report("restore-unet", card_models["restore-unet"], bf16)
     indist = G.in_distribution_report(card_models, bf16, "cuda")
     launches = _read_launches("flash_attention", flash_kernel)
+    out["fused_norm_launches"] = _read_gn("quality_gates")
     out["card_s"] = time.perf_counter() - t
     for hook in hooks:
         hook.remove()
@@ -2428,6 +2618,9 @@ def phase_quality_bench(torch, np, report, card):
     check(detail["validity"]["status"] == "VALID", f"bench validity {detail['validity']}")
     check(detail["launches"]["flash_attention"] >= 1 and detail["launches"]["blend_tiles"] >= 1,
           f"bench kernel launches {detail['launches']}")
+    for name, n in detail["fused_norm_launches"].items():
+        GN_PATH_LAUNCHES[name]["bench"] = n
+        check(n >= 1, f"bench fused GroupNorm launches {detail['fused_norm_launches']}")
     out["seconds"] = time.perf_counter() - t_phase
     print(json.dumps({"quality_bench_phase": {k: out[k] for k in ("seconds", "card_s", "cpu_s", "bench_s")}}),
           flush=True)
@@ -2764,8 +2957,13 @@ def phase_fold(torch, np, report, card):
         for name, engine in engines.items():
             _zero_launches(flash_kernel)
             _zero_launches(blend_kernel)
+            _zero_gn()
             got[name] = _arrays(run(engine))
             n[name] = (_read_launches("flash_attention", flash_kernel), _read_launches("blend_tiles", blend_kernel))
+            if name == "folded":  # the folded UNet's fused GroupNorm launches (SR runs none)
+                for gn_name, gn_kernel in _gn_kernels().items():
+                    GN_PATH_LAUNCHES[gn_name]["fold"] = (GN_PATH_LAUNCHES[gn_name].get("fold", 0)
+                                                         + _read_launches(gn_name, gn_kernel))
         results[surface] = got["folded"]
         u8 = [i for i, a in enumerate(got["folded"]) if a.dtype == np.uint8]
         levels = [_fold_levels(np, got["folded"][i], got["unfolded"][i]) for i in u8]
@@ -2856,6 +3054,8 @@ def phase_fold(torch, np, report, card):
     for name, (before, after) in out["compile_count"].items():
         hold(before == after, f"fold phase: the {name} engine built {after - before} executables after its warm-up")
     out["launches"] = launches
+    hold(all(GN_PATH_LAUNCHES[name].get("fold", 0) > 0 for name in GN_PATH_LAUNCHES),
+         f"fold: the folded UNet surfaces launched no fused GroupNorm kernel: {GN_PATH_LAUNCHES}")
     out["seconds"] = time.perf_counter() - t_phase
     print(json.dumps({"fold_phase": {k: out[k] for k in ("seconds", "launches", "compile_count")}}), flush=True)
     report["fold"] = {**out, "failed": fails}
@@ -2974,6 +3174,10 @@ def phase_promotion(torch, np, report, card):
         out["payload_wall_s"] = _payload_seconds(os.path.join(logdir, "runner.log"))
         out["payload_train_s"] = {name: s["seconds"] for name, s in said.items()}
         out["payload_attention_launches"] = {name: s["attentionLaunches"] for name, s in said.items()}
+        out["payload_fused_norm_launches"] = {name: (s["gnMomentsLaunches"], s["gnAffineSiluLaunches"])
+                                              for name, s in said.items()}
+        for name, (moments, affine) in out["payload_fused_norm_launches"].items():
+            check(moments > 0 and affine > 0, f"payload {name}: fused GroupNorm launches {moments}, {affine}")
         for name, s in said.items():
             check(s["steps"] == PROMOTION_TRAIN_STEPS and s["attentionLaunches"] >= PROMOTION_TRAIN_STEPS,
                   f"{name}: training done with {s}")
@@ -2985,6 +3189,7 @@ def phase_promotion(torch, np, report, card):
 
         # --- 2. the ranker, in this process
         _zero_launches(flash_kernel)
+        _zero_gn()
         t = time.perf_counter()
         results, failed = rank_candidates.rank(stage, PROMOTION_FAMILY, PROMOTION_RANK_N, True, "cuda")
         out["rank_s"] = time.perf_counter() - t
@@ -3019,6 +3224,7 @@ def phase_promotion(torch, np, report, card):
         rows = validate_staging.validate(stage_s, device="cuda", axes=axes)
         out["gate_shipped_s"] = time.perf_counter() - t
         launches = _read_launches("flash_attention", flash_kernel)
+        out["fused_norm_launches"] = _read_gn("promotion")
         deltas = {f"{fam}/{k}": abs(v["staged"][k] - v["shipped"][k])
                   for fam, v in axes.items() for k in v["shipped"] if k in v["staged"]}
         worst = max(deltas, key=deltas.get)
@@ -3082,6 +3288,7 @@ def main() -> int:
     from image_restoration_platform_tpu_torch.ops.cuda import attention as A
     from image_restoration_platform_tpu_torch.ops.cuda import blend as B
     from image_restoration_platform_tpu_torch.ops.cuda import build
+    from image_restoration_platform_tpu_torch.ops.cuda import group_norm as G
 
     t_start = time.perf_counter()
     report: dict = {}
@@ -3099,8 +3306,8 @@ def main() -> int:
         return source, build.compile_source(source), time.perf_counter() - t
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE, G.SOURCE)))
     report["build_s"] = time.perf_counter() - t
     report["build_s_by_source"] = {source: seconds for source, _, seconds in builds}
     report["ptxas"] = {source: [line.strip() for line in log.splitlines()
@@ -3160,6 +3367,7 @@ def main() -> int:
         return 0
     rows = phase_kernels(torch, report)
     blend_rows = phase_blend_kernel(torch, report)
+    gn_rows = phase_gn_kernels(torch, report)
     if args.plan_sweep:
         phase_plan_sweep(torch, report)
         if args.report:
@@ -3232,6 +3440,33 @@ def main() -> int:
         "bound_by": blend_row["bound_by"],
         "library_ms": blend_row["library_ms"],
     }]
+    gn_main = next(r for r in gn_rows if tuple(r["shape"]) == GN_MAIN_SHAPE)
+    gn_paths = ("restore", "diffusion", "fusion", "service_graph", "train", "mesh_restore_data4",
+                "mesh_restore_data2_tensor2", "quality_gates", "bench", "graphs", "fold", "promotion")
+    for name, variant, checked in (("gn_moments", "film", ("moments_unit", "moments_offset", "film")),
+                                   ("gn_affine_silu", "affine", ("affine",))):
+        kernels.append({
+            "name": name,
+            "variant": variant,
+            "variants": [{"shape": r["shape"], "silu": r["silu"], "path": r["path"], "library_ms": r["library_ms"],
+                          **{v: r[v] for v in (("moments", "film") if name == "gn_moments" else ("affine",))}}
+                         for r in gn_rows],
+            "route": "cuda",
+            "source": f"{PKG}/csrc/group_norm.cu",
+            "replaces": "image_restoration_platform_tpu/models/nn.py:81 (group_norm_stats .. _apply_affine :125: "
+                        "the reference's XLA-fused GroupNorm, no Pallas kernel)",
+            "launches": sum(GN_PATH_LAUNCHES[name].values()),
+            "launches_by_path": GN_PATH_LAUNCHES[name],
+            "max_abs_err": max(r["checks"][c]["max_abs_err"] for r in gn_rows for c in checked),
+            "ms": gn_main[variant]["ms"],
+            "plain_ms": gn_main[variant]["plain_ms"],
+            "bound_ms": gn_main[variant]["bound_ms"],
+            "bound_by": gn_main[variant]["bound_by"],
+            "library_ms": gn_main["library_ms"],
+            "library": f"{gn_main['library']} at {GN_MAIN_SHAPE}: the whole GroupNorm (+ SiLU) that the two "
+                       "kernels compute together",
+        })
+        check(set(gn_paths) <= set(GN_PATH_LAUNCHES[name]), f"{name}: paths read {sorted(GN_PATH_LAUNCHES[name])}")
     for k in kernels:
         check(all(n > 0 for n in k["launches_by_path"].values()), f"{k['name']} was not launched on a path: {k}")
     report["kernels"] = kernels

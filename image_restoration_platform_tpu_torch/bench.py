@@ -29,8 +29,9 @@ reference's sections:
 The headline is ONE JSON line on stdout after the last section; the
 detail goes to stderr. ``detail`` holds the platform, the batched images/s,
 the device ms per image, ``mfu``, the validity stamp (utils/measure_guard.py:
-a device->host probe before and after) and the attention and blend kernel
-launches of the run. A failing section fails the run (non-zero exit).
+a device->host probe before and after), the attention and blend kernel
+launches of the run and, apart, the fused GroupNorm kernels' launches. A
+failing section fails the run (non-zero exit).
 ``vs_baseline`` divides by 0.0454 images/s, the JAX reference pipeline's
 figure on a 1-core CPU (XLA:CPU, BASELINE.md), not a card's.
 
@@ -122,6 +123,7 @@ def main(argv=None) -> int:
     from .obs.metrics import get_counters
     from .ops.cuda.attention import flash_kernel
     from .ops.cuda.blend import blend_kernel
+    from .ops.cuda.group_norm import affine_silu_kernel, moments_kernel
     from .serve import MicroBatcher, RestorationEngine, RestoratorService, resolve_device
     from .utils.measure_guard import guarded
     from .utils.peaks import PEAK_FLOPS
@@ -131,7 +133,9 @@ def main(argv=None) -> int:
     cfg = ServingConfig(size_buckets=(size,), max_batch=batch)
     engine = RestorationEngine(device=device, serving_config=cfg)
     service = RestoratorService(engine=engine, serving_config=cfg, device=device)
-    for kernel in (flash_kernel, blend_kernel):  # the run's launches, from 0
+    kernels = {"flash_attention": flash_kernel, "blend_tiles": blend_kernel}
+    fused_norm = {"gn_moments": moments_kernel, "gn_affine_silu": affine_silu_kernel}
+    for kernel in (*kernels.values(), *fused_norm.values()):  # the run's launches, from 0
         kernel.launches = 0
         kernel.launches_by_variant = dict.fromkeys(kernel.launches_by_variant, 0)
 
@@ -251,7 +255,8 @@ def main(argv=None) -> int:
         detail["families"] = families
 
     guard.stamp(detail)
-    detail["launches"] = {"flash_attention": flash_kernel.launches, "blend_tiles": blend_kernel.launches}
+    detail["launches"] = {name: kernel.launches for name, kernel in kernels.items()}
+    detail["fused_norm_launches"] = {name: kernel.launches for name, kernel in fused_norm.items()}
     print(json.dumps({
         "metric": f"images_per_sec_per_chip_{size}px_single_restore_e2e",
         "value": round(e2e_ips, 4),

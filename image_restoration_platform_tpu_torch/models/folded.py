@@ -301,20 +301,17 @@ def _res_block_up(block: ResBlock, up0: "PhaseKernels", x_lo: torch.Tensor, cat:
     g = L.gn_groups(ctot, groups)
     per = ctot // g
     cnt = cat.shape[1] * cat.shape[2] * per
-    xf, cf = x_lo.float(), cat.float()
-    s1 = torch.cat([4.0 * xf.sum(dim=(1, 2)), cf.sum(dim=(1, 2))], dim=-1)
-    s2 = torch.cat([4.0 * (xf * xf).sum(dim=(1, 2)), (cf * cf).sum(dim=(1, 2))], dim=-1)
-    mean_c, inv_c = L._group_moments(s1, s2, g, cnt, 1e-5)
-    scale = block.norm1.scale.float()[None, :] * inv_c
-    bias = block.norm1.bias.float()[None, :] - mean_c * scale
-    na = L._affine(x_lo, scale[:, :cx], bias[:, :cx])
-    nb = L._affine(cat, scale[:, cx:], bias[:, cx:])
+    (s1x, s2x), (s1c, s2c) = L.gn_moments(x_lo), L.gn_moments(cat)
+    s1 = torch.cat([4.0 * s1x, s1c], dim=-1)
+    s2 = torch.cat([4.0 * s2x, s2c], dim=-1)
+    scale, bias = L._folded_affine(block.norm1.scale, block.norm1.bias, *L._group_moments(s1, s2, g, cnt, 1e-5))
+    na = L.gn_affine_silu(x_lo, scale[:, :cx], bias[:, :cx])
+    nb = L.gn_affine_silu(cat, scale[:, cx:], bias[:, cx:])
 
-    h1 = upconv2d_folded(up0.conv1_up, L.silu(na))
-    h1 = h1 + block.conv1.part(L.silu(nb), cx)
-    h1 = block.conv1.add_bias(h1)
-    h1 = block.film(h1, emb)
-    h1 = block.conv2(L.silu(block.norm2(h1, groups)))
+    h1 = upconv2d_folded(up0.conv1_up, na)
+    h1 = h1 + block.conv1.part(nb, cx)
+    h1 = block.norm2.film_silu(h1, block.conv1.full_bias(), block.film.gamma_beta(emb, h1.dtype), groups)
+    h1 = block.conv2(h1)
 
     sp = upconv2d_folded(up0.skip_up, x_lo)
     sp = sp + block.skip.part(cat, cx)
@@ -438,7 +435,7 @@ class FoldedUNet(nn.Module):
             if hasattr(level, "up"):
                 h = level.up(h)
 
-        h = L.silu(self.head_norm(h, c.norm_groups))
+        h = self.head_norm.silu(h, c.norm_groups)
         residual = unfold_w(self.head(h))
         if c.input_scale > 1:
             residual = L.pixel_shuffle(residual, c.input_scale)

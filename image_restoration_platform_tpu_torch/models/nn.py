@@ -10,7 +10,10 @@ numerics:
 - parameters are cast to the activation type at the call (a no-op once the
   engine has cast them), except GroupNorm's scale and bias, which stay f32;
 - ``dense``, ``film`` and bias adds run in the activation type;
-- GroupNorm is the one-pass E[x^2] - mu^2 in f32 with ``gn_groups`` groups;
+- GroupNorm is the one-pass E[x^2] - mu^2 in f32 with ``gn_groups`` groups,
+  folded into one per-(n, c) affine; the per-channel sums and the affine
+  (with the SiLU that follows it, and the conv bias and FiLM before it in a
+  ResBlock) are the fused kernels of ops/cuda/group_norm.py on a card;
 - ``SAME`` padding is computed per axis like XLA's: a stride-2 3x3 conv on an
   even size pads (0, 1), not (1, 1);
 - ``pixel_shuffle`` / ``space_to_depth`` use the (ph, pw, c) channel order,
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.attention import flash_attention
+from ..ops.cuda.group_norm import film_modulate, gn_affine_silu, gn_film_moments, gn_moments
 
 # ---------------------------------------------------------------- functions
 
@@ -59,9 +63,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1) -
     return _conv_nchw(x, w, stride) + b.to(x.dtype)
 
 
-def conv2d_cat(parts: list[torch.Tensor], w: torch.Tensor, b: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def conv2d_cat(parts: list[torch.Tensor], w: torch.Tensor, b: torch.Tensor | None, stride: int = 1) -> torch.Tensor:
     """conv2d over the channel concat of ``parts`` without forming it:
-    conv(cat(a, b), W) == conv(a, W[:, :ca]) + conv(b, W[:, ca:])."""
+    conv(cat(a, b), W) == conv(a, W[:, :ca]) + conv(b, W[:, ca:]); ``b``
+    None leaves the bias add to the caller."""
     out = None
     offset = 0
     for p in parts:
@@ -69,7 +74,7 @@ def conv2d_cat(parts: list[torch.Tensor], w: torch.Tensor, b: torch.Tensor, stri
         piece = _conv_nchw(p, w[:, offset : offset + pc], stride)
         out = piece if out is None else out + piece
         offset += pc
-    return out + b.to(parts[0].dtype)
+    return out if b is None else out + b.to(parts[0].dtype)
 
 
 def gn_groups(c: int, groups: int) -> int:
@@ -90,53 +95,68 @@ def _group_moments(s1: torch.Tensor, s2: torch.Tensor, g: int, cnt: int, eps: fl
     return mean_c, inv_c
 
 
-def _affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    return (x.float() * scale[:, None, None, :] + bias[:, None, None, :]).to(x.dtype)
-
-
 def group_norm_stats(x: torch.Tensor, groups: int, eps: float = 1e-5):
     """NHWC -> (mean_c, inv_c), both [N, C] f32 (one-pass moments)."""
     n, h, w, c = x.shape
     g = gn_groups(c, groups)
-    xf = x.float()
-    s1 = xf.sum(dim=(1, 2))
-    s2 = (xf * xf).sum(dim=(1, 2))
+    s1, s2 = gn_moments(x)
     return _group_moments(s1, s2, g, h * w * (c // g), eps)
+
+
+def _folded_affine(scale: torch.Tensor, bias: torch.Tensor, mean_c: torch.Tensor, inv_c: torch.Tensor):
+    """(x - mean) * inv * scale + bias as one [N, C] f32 affine."""
+    s = scale.float()[None, :] * inv_c
+    return s, bias.float()[None, :] - mean_c * s
+
+
+def group_norm_silu(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int = 32, eps: float = 1e-5,
+    silu: bool = True,
+) -> torch.Tensor:
+    """silu(GroupNorm(x)) (``silu=False``: the GroupNorm alone), in x's type."""
+    s, bb = _folded_affine(scale, bias, *group_norm_stats(x, groups, eps))
+    return gn_affine_silu(x, s, bb, silu)
 
 
 def group_norm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int = 32, eps: float = 1e-5
 ) -> torch.Tensor:
-    mean_c, inv_c = group_norm_stats(x, groups, eps)
-    s = scale.float()[None, :] * inv_c
-    return _affine(x, s, bias.float()[None, :] - mean_c * s)
+    return group_norm_silu(x, scale, bias, groups, eps, silu=False)
 
 
 def group_norm_cat(
     parts: list[torch.Tensor], scale: torch.Tensor, bias: torch.Tensor, groups: int = 32,
-    eps: float = 1e-5,
+    eps: float = 1e-5, silu: bool = False,
 ) -> list[torch.Tensor]:
-    """GroupNorm over the channel concat of ``parts``, returned still split."""
+    """GroupNorm over the channel concat of ``parts``, returned still split
+    (each part through SiLU with ``silu``)."""
     c = sum(p.shape[-1] for p in parts)
     g = gn_groups(c, groups)
     h, w = parts[0].shape[1], parts[0].shape[2]
-    s1 = torch.cat([p.float().sum(dim=(1, 2)) for p in parts], dim=-1)
-    s2 = torch.cat([(p.float() * p.float()).sum(dim=(1, 2)) for p in parts], dim=-1)
-    mean_c, inv_c = _group_moments(s1, s2, g, h * w * (c // g), eps)
-    s = scale.float()[None, :] * inv_c
-    bb = bias.float()[None, :] - mean_c * s
+    sums = [gn_moments(p) for p in parts]
+    s1 = torch.cat([s for s, _ in sums], dim=-1)
+    s2 = torch.cat([s for _, s in sums], dim=-1)
+    s, bb = _folded_affine(scale, bias, *_group_moments(s1, s2, g, h * w * (c // g), eps))
     out, offset = [], 0
     for p in parts:
         pc = p.shape[-1]
-        out.append(_affine(p, s[:, offset : offset + pc], bb[:, offset : offset + pc]))
+        out.append(gn_affine_silu(p, s[:, offset : offset + pc], bb[:, offset : offset + pc], silu))
         offset += pc
     return out
 
 
-def film_modulate(x: torch.Tensor, gamma_beta: torch.Tensor) -> torch.Tensor:
-    """x * (1 + gamma) + beta, gamma and beta the halves of [N, 2C]."""
-    gamma, beta = gamma_beta.chunk(2, dim=-1)
-    return x * (1.0 + gamma[:, None, None, :]) + beta[:, None, None, :]
+def film_group_norm_silu(
+    raw: torch.Tensor, conv_bias: torch.Tensor, gamma_beta: torch.Tensor, scale: torch.Tensor,
+    bias: torch.Tensor, groups: int = 32, eps: float = 1e-5,
+) -> torch.Tensor:
+    """silu(GroupNorm(film_modulate(raw + conv_bias, gamma_beta))): the
+    ResBlock's conv1 bias, FiLM, norm2 and SiLU from the bias-free conv
+    output ``raw``, with the FiLM vectors [N, 2C] of ``Film.gamma_beta``."""
+    n, h, w, c = raw.shape
+    g = gn_groups(c, groups)
+    y, s1, s2 = gn_film_moments(raw, conv_bias, gamma_beta)
+    s, bb = _folded_affine(scale, bias, *_group_moments(s1, s2, g, h * w * (c // g), eps))
+    return gn_affine_silu(y, s, bb)
 
 
 def film(x: torch.Tensor, cond: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -207,6 +227,10 @@ class Film(Dense):
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         return film(x, cond, self.w, self.b)
 
+    def gamma_beta(self, cond: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The FiLM vectors [N, 2C] (gamma | beta) of ``cond`` in ``dtype``."""
+        return dense(cond.to(dtype), self.w, self.b)
+
     def init_(self, gen: torch.Generator, scale: float = 1.0) -> None:
         with torch.no_grad():
             self.w.zero_()
@@ -222,8 +246,14 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
         return conv2d(x, self.w, self.b, stride)
 
-    def cat(self, parts: list[torch.Tensor], stride: int = 1) -> torch.Tensor:
-        return conv2d_cat(parts, self.w, self.b, stride)
+    def cat(self, parts: list[torch.Tensor], stride: int = 1, bias: bool = True) -> torch.Tensor:
+        """The conv of the parts' channel concat; ``bias=False`` leaves the
+        bias add to the caller."""
+        return conv2d_cat(parts, self.w, self.b if bias else None, stride)
+
+    def full_bias(self) -> torch.Tensor:
+        """The bias vector [co] (a column-parallel layer gathers its slices)."""
+        return self.b
 
     def part(self, x: torch.Tensor, start: int) -> torch.Tensor:
         """The stride-1 SAME conv of ``x`` with the kernel's input channels
@@ -250,8 +280,18 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor, groups: int = 32) -> torch.Tensor:
         return group_norm(x, self.scale, self.bias, groups)
 
-    def cat(self, parts: list[torch.Tensor], groups: int = 32) -> list[torch.Tensor]:
-        return group_norm_cat(parts, self.scale, self.bias, groups)
+    def silu(self, x: torch.Tensor, groups: int = 32) -> torch.Tensor:
+        """silu(self(x)), in one pass over x after its moments."""
+        return group_norm_silu(x, self.scale, self.bias, groups)
+
+    def cat(self, parts: list[torch.Tensor], groups: int = 32, silu: bool = False) -> list[torch.Tensor]:
+        return group_norm_cat(parts, self.scale, self.bias, groups, silu=silu)
+
+    def film_silu(self, raw: torch.Tensor, conv_bias: torch.Tensor, gamma_beta: torch.Tensor,
+                  groups: int = 32) -> torch.Tensor:
+        """silu(self(film_modulate(raw + conv_bias, gamma_beta))) from the
+        bias-free conv output ``raw``: the FiLM prologue of the moments."""
+        return film_group_norm_silu(raw, conv_bias, gamma_beta, self.scale, self.bias, groups)
 
 
 def takes_attention_kernel(tokens: int, head_dim: int) -> bool:

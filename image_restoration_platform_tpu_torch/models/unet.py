@@ -72,12 +72,13 @@ class ResBlock(nn.Module):
         """``cat``: a second input concatenated to x on channels, consumed
         through the split GroupNorm and split-weight convs."""
         if cat is None:
-            h = self.conv1(L.silu(self.norm1(x, groups)))
+            parts = [self.norm1.silu(x, groups)]
         else:
-            na, nb = self.norm1.cat([x, cat], groups)
-            h = self.conv1.cat([L.silu(na), L.silu(nb)])
-        h = self.film(h, emb)
-        h = self.conv2(L.silu(self.norm2(h, groups)))
+            parts = self.norm1.cat([x, cat], groups, silu=True)
+        # conv1's bias and the FiLM ride in the norm2 moments' prologue
+        h = self.conv1.cat(parts, bias=False)
+        h = self.norm2.film_silu(h, self.conv1.full_bias(), self.film.gamma_beta(emb, h.dtype), groups)
+        h = self.conv2(h)
         if self.skip is None:
             skip = x
         elif cat is None:
@@ -206,7 +207,7 @@ class RestorationUNet(nn.Module):
             if hasattr(level, "up"):
                 h = level.up(h)
 
-        h = L.silu(self.head_norm(h, c.norm_groups))
+        h = self.head_norm.silu(h, c.norm_groups)
         residual = self.head(h)
         if c.input_scale > 1 and not s2d_io:
             residual = L.pixel_shuffle(residual, c.input_scale)

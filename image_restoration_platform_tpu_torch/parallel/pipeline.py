@@ -144,7 +144,7 @@ def _unet_segments(config):
         return {**carry, "h": h, "skips": skips}
 
     def head(m, carry):
-        residual = m.head(L.silu(m.head_norm(carry["h"], groups)))
+        residual = m.head(m.head_norm.silu(carry["h"], groups))
         if c.input_scale > 1:
             residual = L.pixel_shuffle(residual, c.input_scale)
         if c.residual_shrink > 0.0:

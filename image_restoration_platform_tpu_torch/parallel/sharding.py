@@ -101,8 +101,11 @@ class ShardedConv(_ColumnParallel):
     def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
         return self._gather(lambda w, b, d: L.conv2d(x.to(d), w, b, stride))
 
-    def cat(self, parts: list[torch.Tensor], stride: int = 1) -> torch.Tensor:
-        return self._gather(lambda w, b, d: L.conv2d_cat([p.to(d) for p in parts], w, b, stride))
+    def cat(self, parts: list[torch.Tensor], stride: int = 1, bias: bool = True) -> torch.Tensor:
+        return self._gather(lambda w, b, d: L.conv2d_cat([p.to(d) for p in parts], w, b if bias else None, stride))
+
+    def full_bias(self) -> torch.Tensor:
+        return gather(list(self.b), self.devices[0])
 
     def part(self, x: torch.Tensor, start: int) -> torch.Tensor:
         """``L.Conv.part`` over the slots: each its output channels."""
@@ -110,7 +113,7 @@ class ShardedConv(_ColumnParallel):
         return gather(parts, self.devices[0], dim=-1)
 
     def add_bias(self, x: torch.Tensor) -> torch.Tensor:
-        return x + gather(list(self.b), self.devices[0]).to(x.dtype)
+        return x + self.full_bias().to(x.dtype)
 
 
 class ShardedDense(_ColumnParallel):
@@ -122,7 +125,10 @@ class ShardedDense(_ColumnParallel):
 
 class ShardedFilm(ShardedDense):
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        return L.film_modulate(x, ShardedDense.forward(self, cond.to(x.dtype)))
+        return L.film_modulate(x, self.gamma_beta(cond, x.dtype))
+
+    def gamma_beta(self, cond: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return ShardedDense.forward(self, cond.to(dtype))
 
 
 def _sharded_type(module: nn.Module, tensor_size: int, unit: int = 1):

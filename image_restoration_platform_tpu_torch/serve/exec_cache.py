@@ -19,9 +19,10 @@ branch, replayed with the host reading the stage flags between them:
   arrays) exist before capture; one capture per segment and branch, each
   writing its results into static buffers that both branches share; replay.
   A capture launches no kernel, so the launch counts of the hand-written
-  kernels (``FlashKernel.launches``, ``BlendKernel.launches``, counted in
-  Python where they launch) are set back after it, and every replay adds
-  the launches its graph holds;
+  kernels (``FlashKernel.launches``, ``BlendKernel.launches``, the fused
+  GroupNorm's ``MomentsKernel.launches`` and ``AffineSiluKernel.launches``,
+  counted in Python where they launch) are set back after it, and every
+  replay adds the launches its graph holds;
 - ``EagerExecutable``: the segments run eagerly under the same key. It is
   the executable on the CPU, where nothing is captured (so the key, the
   single-flight gate and the branch selection are all exercised there); on
@@ -117,8 +118,9 @@ class ExecCache:
 def _kernels() -> tuple:
     from ..ops.cuda.attention import flash_kernel
     from ..ops.cuda.blend import blend_kernel
+    from ..ops.cuda.group_norm import affine_silu_kernel, moments_kernel
 
-    return (flash_kernel, blend_kernel)
+    return (flash_kernel, blend_kernel, moments_kernel, affine_silu_kernel)
 
 
 class LaunchDelta:

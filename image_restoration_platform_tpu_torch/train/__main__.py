@@ -23,6 +23,7 @@ from ..models import diffusion as diff_mod
 from ..models import get_family
 from ..models import weights as weights_mod
 from ..ops.cuda.attention import flash_kernel
+from ..ops.cuda.group_norm import affine_silu_kernel, moments_kernel
 from ..utils.logging import get_logger
 from .data import DataConfig, _random_clean_rich, synthetic_batch
 from .trainer import Trainer, TrainConfig
@@ -135,11 +136,13 @@ def main(device: str = "cuda") -> None:
                 log.info("interim export", {"stepsDone": done})
     else:
         trainer.run(steps, log_every=max(1, steps // 40))
-    # the attention kernel's launches in this process so far (0 on the CPU,
-    # where the plain version runs), so a caller that runs this entry point
-    # as a subprocess can read from its log that the kernel ran
+    # the kernels' launches in this process so far (0 on the CPU, where the
+    # plain versions run), so a caller that runs this entry point as a
+    # subprocess can read from its log that the kernels ran
     log.info("training done", {"steps": steps, "seconds": round(time.time() - t0, 1),
-                               "attentionLaunches": flash_kernel.launches})
+                               "attentionLaunches": flash_kernel.launches,
+                               "gnMomentsLaunches": moments_kernel.launches,
+                               "gnAffineSiluLaunches": affine_silu_kernel.launches})
 
     _, final_psnr = evaluate(model.state_dict(), family, eval_seed, size=cfg.image_size, photo=cfg.data_photo,
                              device=trainer.device)
