@@ -16,6 +16,7 @@ import base64
 
 from ..classify import ClassifierService
 from ..config import Config, load_config
+from ..obs.tracing import get_tracer
 from ..prompt import PromptEnhancerService
 from ..serve import (
     CreditsService,
@@ -48,6 +49,7 @@ class AppContext:
         self.device = resolve_device(device)
         self.config = config or load_config()
         self.logger = get_logger("app")
+        self._tracer = get_tracer("app")
         self.store = create_store()
         self.rate_limiter = RateLimiter(self.store, self.config.rate_limit)
         self.idempotency = IdempotencyService(self.store)
@@ -101,37 +103,40 @@ class AppContext:
 
     def _process_job(self, job: Job) -> dict:
         """Worker body: decode the payload, run the restore (or fusion)
-        pipeline, keep the restored image in the result blob tier."""
-        payload = job.payload
-        images_b64 = payload.get("imagesB64") or [payload["imageB64"]]
-        user_context = {"userId": job.user_id, "jobId": job.id}
-        options = payload.get("options") or {}
-        if len(images_b64) > 1:
-            result = self.restorator.restore_fusion(
-                [base64.b64decode(b) for b in images_b64],
-                user_prompt=payload.get("prompt"),
-                user_context=user_context,
-                options=options,
-            )
-        else:
-            result = self.restorator.restore(
-                base64.b64decode(images_b64[0]),
-                user_prompt=payload.get("prompt"),
-                user_context=user_context,
-                options=options,
-            )
-        if result.get("success") and result.get("restoredImage"):
-            # durable result tier (restored/<jobId>): downloadable after the
-            # job-record retention window trims the job store
-            try:
-                self.blobs.put_result(
-                    job.id,
-                    base64.b64decode(result["restoredImage"]),
-                    user_id=job.user_id,
+        pipeline, keep the restored image in the result blob tier; traced
+        as ``job.process``, with ``blobs.put_result`` in it."""
+        with self._tracer.span("job.process", {"job.id": job.id}):
+            payload = job.payload
+            images_b64 = payload.get("imagesB64") or [payload["imageB64"]]
+            user_context = {"userId": job.user_id, "jobId": job.id}
+            options = payload.get("options") or {}
+            if len(images_b64) > 1:
+                result = self.restorator.restore_fusion(
+                    [base64.b64decode(b) for b in images_b64],
+                    user_prompt=payload.get("prompt"),
+                    user_context=user_context,
+                    options=options,
                 )
-            except Exception as error:  # non-fatal: the job result still carries it
-                self.logger.warn("Result blob store failed", {"jobId": job.id, "error": str(error)})
-        return result
+            else:
+                result = self.restorator.restore(
+                    base64.b64decode(images_b64[0]),
+                    user_prompt=payload.get("prompt"),
+                    user_context=user_context,
+                    options=options,
+                )
+            if result.get("success") and result.get("restoredImage"):
+                # durable result tier (restored/<jobId>): downloadable after
+                # the job-record retention window trims the job store
+                try:
+                    with self._tracer.span("blobs.put_result"):
+                        self.blobs.put_result(
+                            job.id,
+                            base64.b64decode(result["restoredImage"]),
+                            user_id=job.user_id,
+                        )
+                except Exception as error:  # non-fatal: the job result still carries it
+                    self.logger.warn("Result blob store failed", {"jobId": job.id, "error": str(error)})
+            return result
 
     def _refund_job(self, job: Job) -> None:
         """Dead-letter compensation: refund the credit charged at submit."""

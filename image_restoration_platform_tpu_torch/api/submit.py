@@ -9,7 +9,10 @@ the moderation gate, creates the job, charges one credit, and then either
 processes it at once (``sync``) or enqueues it. It raises the same RFC 7807
 problems, in the same order, as image_restoration_platform_tpu/api/routes.py,
 and imports no aiohttp, so the submission path runs where the HTTP layer
-cannot.
+cannot. A submission is the trace of its ``submit.job`` span (with the job's
+id), whose children are ``submit.validate``, ``submit.preprocess``, the
+moderation, ``submit.record`` (the job and its credit) and, when ``sync``,
+``job.process``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import imageio
+from ..obs.tracing import get_tracer
 from ..ops.resize import fit_inside, resize_u8
 from ..problem import (
     content_rejected,
@@ -35,6 +39,7 @@ from ..serve.jobs import JobState
 from .context import AppContext
 
 MAX_IMAGES_PER_CALL = 3
+_tracer = get_tracer("submit")
 
 
 def validate_upload(filename: str, data: bytes, ctx: AppContext) -> str:
@@ -96,50 +101,56 @@ def submit_job(
     """Submit one job of 1-3 uploads ``(filename, bytes)`` for ``user``.
     Returns (HTTP status, JSON body, headers): 200 or 502 with the finished
     job when ``sync``, else 202 with a Location header; raises a Problem."""
-    if not images:
-        raise image_missing()
-    if len(images) > MAX_IMAGES_PER_CALL:
-        raise preprocess_failed(f"At most {MAX_IMAGES_PER_CALL} images per call.")
+    with _tracer.span("submit.job", {"submit.images": len(images), "submit.sync": sync,
+                                     **({"job.traceparent": traceparent} if traceparent else {})}) as span:
+        if not images:
+            raise image_missing()
+        if len(images) > MAX_IMAGES_PER_CALL:
+            raise preprocess_failed(f"At most {MAX_IMAGES_PER_CALL} images per call.")
 
-    preprocessed: list[bytes] = []
-    all_operations: list[list[str]] = []
-    for filename, data in images:
-        if len(data) > ctx.config.upload.max_file_size_bytes:
-            raise file_too_large(ctx.config.upload.max_file_size_bytes // (1024 * 1024))
-        validate_upload(filename, data, ctx)
-        _, jpeg, operations = preprocess(data, ctx)
-        preprocessed.append(jpeg)
-        all_operations.append(operations)
+        preprocessed: list[bytes] = []
+        all_operations: list[list[str]] = []
+        for filename, data in images:
+            with _tracer.span("submit.validate"):
+                if len(data) > ctx.config.upload.max_file_size_bytes:
+                    raise file_too_large(ctx.config.upload.max_file_size_bytes // (1024 * 1024))
+                validate_upload(filename, data, ctx)
+            with _tracer.span("submit.preprocess"):
+                _, jpeg, operations = preprocess(data, ctx)
+            preprocessed.append(jpeg)
+            all_operations.append(operations)
 
-    for jpeg in preprocessed:
-        moderate(ctx, jpeg, {"userId": user["id"], "requestId": request_id})
+        for jpeg in preprocessed:
+            moderate(ctx, jpeg, {"userId": user["id"], "requestId": request_id})
 
-    # create the job first so the ledger entry carries its id, then bill
-    payload = {
-        "imageB64": base64.b64encode(preprocessed[0]).decode("ascii"),
-        "imagesB64": [base64.b64encode(j).decode("ascii") for j in preprocessed],
-        "prompt": prompt,
-        "options": options or {},
-        "preprocessOperations": all_operations,
-    }
-    job = ctx.jobs.create(user["id"], payload, request_id=request_id, traceparent=traceparent)
-    decision = ctx.credits.check_and_deduct(user["id"], 1, job.id)
-    if not decision["allowed"]:
-        ctx.jobs.transition(job.id, JobState.DEAD_LETTER, error={"message": "insufficient credits"})
-        raise insufficient_credits(decision.get("remainingCredits", 0))
+        # create the job first so the ledger entry carries its id, then bill
+        with _tracer.span("submit.record"):
+            payload = {
+                "imageB64": base64.b64encode(preprocessed[0]).decode("ascii"),
+                "imagesB64": [base64.b64encode(j).decode("ascii") for j in preprocessed],
+                "prompt": prompt,
+                "options": options or {},
+                "preprocessOperations": all_operations,
+            }
+            job = ctx.jobs.create(user["id"], payload, request_id=request_id, traceparent=traceparent)
+            span.set_attribute("job.id", job.id)
+            decision = ctx.credits.check_and_deduct(user["id"], 1, job.id)
+            if not decision["allowed"]:
+                ctx.jobs.transition(job.id, JobState.DEAD_LETTER, error={"message": "insufficient credits"})
+                raise insufficient_credits(decision.get("remainingCredits", 0))
 
-    if sync:
-        ctx.jobs.transition(job.id, JobState.RUNNING, attempts=1)
-        result = ctx._process_job(job)
-        if result.get("success"):
-            ctx.jobs.transition(job.id, JobState.SUCCEEDED, result=result, timings=result.get("timings", {}))
-        else:
-            ctx.jobs.transition(job.id, JobState.FAILED, error=result.get("error"))
-            ctx.credits.refund(user["id"], job.id, 1, "Synchronous job failed")
-        body = ctx.jobs.get(job.id).to_public()
-        body["credits"] = decision
-        return (200 if result.get("success") else 502), body, {}
+        if sync:
+            ctx.jobs.transition(job.id, JobState.RUNNING, attempts=1)
+            result = ctx._process_job(job)
+            if result.get("success"):
+                ctx.jobs.transition(job.id, JobState.SUCCEEDED, result=result, timings=result.get("timings", {}))
+            else:
+                ctx.jobs.transition(job.id, JobState.FAILED, error=result.get("error"))
+                ctx.credits.refund(user["id"], job.id, 1, "Synchronous job failed")
+            body = ctx.jobs.get(job.id).to_public()
+            body["credits"] = decision
+            return (200 if result.get("success") else 502), body, {}
 
-    ctx.queue.enqueue(job)
-    body = {"id": job.id, "status": job.state.value, "createdAt": job.created_at, "credits": decision}
-    return 202, body, {"Location": f"/v1/jobs/{job.id}"}
+        ctx.queue.enqueue(job)
+        body = {"id": job.id, "status": job.state.value, "createdAt": job.created_at, "credits": decision}
+        return 202, body, {"Location": f"/v1/jobs/{job.id}"}

@@ -8,7 +8,8 @@ fetches results (the one synchronising copy) and resolves the futures.
 ``pipeline_depth`` bounds the batches in flight. A queue whose oldest
 request has waited past ``fairness_age_ms`` is dispatched next, and
 deadline expiry is swept across all queues. A failed batch fails only its
-own requests.
+own requests. A request's wait is its ``batcher.wait`` span; the batch's
+``engine.call`` names the traces of the requests it serves.
 """
 
 from __future__ import annotations
@@ -23,19 +24,21 @@ import numpy as np
 
 from ..config import ServingConfig
 from ..obs.metrics import get_counters
+from ..obs.tracing import get_tracer
 from ..utils.logging import get_logger
 from .engine import RestorationEngine, resolve_device
 
 
 class _Pending:
-    __slots__ = ("canvas", "valid_hw", "is_jpeg", "future", "arrived")
+    __slots__ = ("canvas", "valid_hw", "is_jpeg", "future", "arrived", "trace_id")
 
-    def __init__(self, canvas, valid_hw, is_jpeg, future):
+    def __init__(self, canvas, valid_hw, is_jpeg, future, trace_id):
         self.canvas = canvas
         self.valid_hw = valid_hw
         self.is_jpeg = is_jpeg
         self.future = future
         self.arrived = time.perf_counter()
+        self.trace_id = trace_id
 
 
 class MicroBatcher:
@@ -50,6 +53,7 @@ class MicroBatcher:
         self.engine = engine
         self.config = config or ServingConfig()
         self.logger = get_logger("batcher")
+        self._tracer = get_tracer("batcher")
         self._queues: dict[tuple, deque[_Pending]] = {}
         self._cv = threading.Condition()
         self._running = True
@@ -89,16 +93,17 @@ class MicroBatcher:
         batch key: a batch runs one compiled program, so requests wanting
         planes and requests wanting RGB cannot share a launch."""
         key = (family, canvas.shape[0], canvas.shape[1], egress)
-        pending = _Pending(canvas, np.asarray(valid_hw, np.int32), bool(is_jpeg), Future())
-        with self._cv:
-            if not self._running:
-                raise RuntimeError("batcher is shut down")
-            self._queues.setdefault(key, deque()).append(pending)
-            self._cv.notify()
-        # the dispatcher's expiry sweep is the deadline authority (it reports
-        # queue-expiry distinctly); the caller-side timeout is a backstop one
-        # second behind it
-        return pending.future.result(timeout=self.config.request_deadline_s + 1.0)
+        with self._tracer.span("batcher.wait", {"batcher.family": family, "batcher.canvas": canvas.shape[0]}) as span:
+            pending = _Pending(canvas, np.asarray(valid_hw, np.int32), bool(is_jpeg), Future(), span.trace_id)
+            with self._cv:
+                if not self._running:
+                    raise RuntimeError("batcher is shut down")
+                self._queues.setdefault(key, deque()).append(pending)
+                self._cv.notify()
+            # the dispatcher's expiry sweep is the deadline authority (it
+            # reports queue-expiry distinctly); the caller-side timeout is a
+            # backstop one second behind it
+            return pending.future.result(timeout=self.config.request_deadline_s + 1.0)
 
     def shutdown(self, drain: bool = True) -> None:
         """Queue drain on SIGTERM (SURVEY.md section 5 failure handling)."""
@@ -211,7 +216,7 @@ class MicroBatcher:
                 # stage + launch WITHOUT waiting: the fetch happens on the
                 # collector thread while this thread forms the next batch
                 fetch = self.engine.restore_batch_async(
-                    imgs, valid_hw, is_jpeg, family, egress
+                    imgs, valid_hw, is_jpeg, family, egress, trace_ids=tuple(p.trace_id for p in batch)
                 )
             except Exception as error:  # noqa: BLE001 - batch failure isolation
                 self.logger.error("Batch dispatch failed", {"family": family, "error": str(error)})

@@ -9,7 +9,9 @@ batches are padded to a power-of-two bucket by repeating the last row; every
 surface runs its program on the engine's device and fetches all outputs in
 one synchronising device->host copy, which also carries the deblock and
 deblur stages' per-image fire flags (counted under ``stage_fires.*``).
-Device seconds are overlap-corrected across pipelined batches.
+A synchronous call's device seconds on a card are its CUDA events' (``_run_sync``);
+restore batches, which pipeline, and every call on the CPU or across cards
+take the host clock, overlap-corrected across batches in flight.
 
 With a ``mesh`` of more than one slot (parallel/mesh.py), ``restore_batch``
 pads the bucket to a multiple of the data size and splits it over the data
@@ -43,7 +45,12 @@ eagerly. ``eager=True`` runs them eagerly on the card too, for comparisons;
 a capture that fails raises. One lock (``_run_lock``) is held from the copy
 into an executable's static inputs, through its replays and host flags, to
 the enqueue of the packed copy of its outputs, so two batches in flight
-never share the static buffers; the fetch runs outside it.
+never share the static buffers; a restore batch's fetch runs outside it, a
+synchronous call's inside it (``_run_sync``).
+
+Every call is traced (obs/tracing.py): ``engine.call`` with the program's
+label, and under it ``engine.queue`` (the wait for the run lock),
+``engine.launch`` (inputs, replays, ``_pack``) and ``engine.fetch``.
 
 The mesh surfaces go through the same tier under the reference's tags,
 which carry the mesh's shape (``_mesh_key``): ``("mesh", family, mesh)``
@@ -72,6 +79,7 @@ from ..models.nn import cast_for_compute
 from ..models.registry import check_attention_shapes
 from ..obs.metrics import get_counters
 from ..obs.tracing import device_trace, get_tracer
+from ..ops.cuda.fetch import fetch
 from ..parallel.mesh import AXIS_DATA, AXIS_SPATIAL, capture_plan
 from ..parallel.sharding import replicate, shard_params
 from ..utils.logging import get_logger
@@ -191,6 +199,11 @@ class RestorationEngine:
         self.device_seconds_total = 0.0
         self._acct_lock = threading.Lock()
         self._device_busy_until = 0.0
+        # one card's stream runs a synchronous call whole: its events time it
+        self._events_time_calls = self.device.type == "cuda" and (
+            mesh is None or len({str(d) for d in mesh.devices.flat}) == 1
+        )
+        self._events = None
         # the diffusion sampler's noise source, in place of a split PRNG key
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._rng_lock = threading.Lock()
@@ -202,9 +215,9 @@ class RestorationEngine:
         return self._exec_cache.compile_count
 
     def _account_device_time(self, t0: float) -> float:
-        """Record a device-busy span [t0, now], clipped to start no earlier
-        than the end of the previous span, so pipelined batches whose
-        windows overlap never count the same time twice."""
+        """Record a device-busy span [t0, now] on the host clock, clipped to
+        start no earlier than the end of the previous span, so pipelined
+        batches whose windows overlap never count the same time twice."""
         t_end = time.perf_counter()
         with self._acct_lock:
             start = max(t0, self._device_busy_until)
@@ -212,6 +225,20 @@ class RestorationEngine:
             self._device_busy_until = t_end
             self.device_seconds_total += device_s
         return device_s
+
+    def _call_events(self) -> list | None:
+        """The engine's three timing events of a synchronous call on the card
+        (its start, after ``_pack``, after the fetch), made on first use; or
+        None where its device seconds take the host clock: on the CPU, and
+        where the program spans cards. A call holds the run lock from its
+        first record to reading them, so one set serves every call."""
+        if not self._events_time_calls:
+            return None
+        if self._events is None:
+            self._events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            for event in self._events:  # an event exists once recorded
+                event.record(torch.cuda.current_stream(self.device))
+        return self._events
 
     def _is_multi_device(self) -> bool:
         return self.mesh is not None and self.mesh.size > 1
@@ -391,6 +418,7 @@ class RestorationEngine:
         is_jpeg: np.ndarray | None = None,
         family_name: str = "restore-unet",
         egress: str = "rgb",
+        trace_ids: tuple[str, ...] = (),
     ):
         """Copy the batch to the device and launch the restore program;
         returns a fetch() closure that synchronises and returns (out, scores
@@ -400,7 +428,9 @@ class RestorationEngine:
         mesh the bucket is padded to a multiple of the data size and each
         data slot runs its shard. The diffusion family has RGB egress only
         and draws its sampler's noise (for the whole bucket) from the
-        engine's seeded generator."""
+        engine's seeded generator. The batch's ``engine.call`` span runs
+        from the launch to the end of the fetch and carries ``trace_ids``,
+        the traces of the requests it serves (the batcher's)."""
         n = canvas_u8.shape[0]
         if valid_hw is None:
             valid_hw = np.tile(np.asarray([canvas_u8.shape[1], canvas_u8.shape[2]], np.int32), (n, 1))
@@ -428,8 +458,10 @@ class RestorationEngine:
         # diffusion batch)
         kind = "diffusion_batches" if family_name == "diffusion-restore" else "restore_batches"
         get_counters().inc(f"{kind}.{canvas_u8.shape[1]}")
-        t0 = time.perf_counter()
         trace_label = f"restore/{family_name}/{canvas_u8.shape[1]}x{canvas_u8.shape[2]}b{bucket}"
+        call = self._tracer.start_span("engine.call", {"engine.program": trace_label,
+                                                       "engine.trace_ids": ",".join(trace_ids)})
+        t0 = time.perf_counter()
         with device_trace(trace_label):
             args = (_host(canvas_u8), torch.from_numpy(valid_hw), torch.from_numpy(is_jpeg_f))
             if family_name == "diffusion-restore":
@@ -442,13 +474,20 @@ class RestorationEngine:
                 executable = self._executable(family_name, args, program, model, egress)
             else:
                 executable = self._mesh_executable(family_name, program, args, egress)
-            with self._run_lock:
-                outs = executable(args)  # (*out, scores, flags)
-                packed = _pack(outs)
+            with self._tracer.span("engine.queue", parent=call):
+                self._run_lock.acquire()
+            try:
+                with self._tracer.span("engine.launch", parent=call):
+                    outs = executable(args)  # (*out, scores, flags)
+                    packed = _pack(outs)
+            finally:
+                self._run_lock.release()
 
         def fetch():
-            t_fetch = time.perf_counter()
-            host = packed.cpu().numpy()
+            with self._tracer.span("engine.fetch", parent=call):
+                t_fetch = time.perf_counter()
+                host = packed.cpu().numpy()
+            self._tracer.end_span(call)
             wall_s = time.perf_counter() - t0
             device_s = self._account_device_time(t0)
             *arrays, scores_h, flags_h = (a[:n] for a in _unpack(host, outs))
@@ -477,21 +516,60 @@ class RestorationEngine:
 
     def _run_sync(self, label: str, run, family_name: str, **extra):
         """Run a device program under the run lock, fetch its outputs in one
-        synchronising copy and assemble the standard meta with
-        overlap-corrected deviceSeconds. ``run()`` returns a tuple of
-        tensors; so does this, as arrays."""
-        t0 = time.perf_counter()
-        with device_trace(label):
-            with self._run_lock:
-                outs = run()
-                packed = _pack(outs)
-            t_fetch = time.perf_counter()
-            arrays = _unpack(packed.cpu().numpy(), outs)
-        device_s = self._account_device_time(t0)
+        synchronising copy and assemble the standard meta. ``run()`` returns
+        a tuple of tensors; so does this, as arrays.
+
+        The lock is held through the fetch, so on a card the call's work is
+        one unbroken stretch of the stream (the next call's input copy and
+        replay cannot land between this call's ``_pack`` and its copy): CUDA
+        events at its start, after ``_pack`` and right behind the copy
+        (ops/cuda/fetch.py) give ``deviceSeconds`` (start to fetched) and the
+        fetch's part of it, added to the counters
+        ``engine.device_s.<kind>`` and ``engine.fetch_s.<kind>`` (``kind``:
+        the label's first part, e.g. ``sr_tiled``). On the CPU and across
+        cards ``deviceSeconds`` is the host clock's (``_account_device_time``)
+        and the fetch's part the host's wait for the copy, which
+        ``fetchSeconds`` is everywhere."""
+        kind = label.split("/", 1)[0]
+        with self._tracer.span("engine.call", {"engine.program": label}):
+            t0 = time.perf_counter()
+            with device_trace(label):
+                with self._tracer.span("engine.queue"):
+                    self._run_lock.acquire()
+                try:
+                    events = self._call_events()
+                    stream = torch.cuda.current_stream(self.device) if events else None
+                    with self._tracer.span("engine.launch"):
+                        if events:
+                            events[0].record(stream)
+                        outs = run()
+                        packed = _pack(outs)
+                        if events:
+                            events[1].record(stream)
+                    with self._tracer.span("engine.fetch"):
+                        t_fetch = time.perf_counter()
+                        if events:
+                            host = fetch(packed, stream, events[2])
+                            device_s = events[0].elapsed_time(events[2]) * 1e-3
+                            fetch_device_s = events[1].elapsed_time(events[2]) * 1e-3
+                        else:
+                            host = packed.cpu().numpy()
+                        arrays = _unpack(host, outs)
+                        fetch_s = time.perf_counter() - t_fetch
+                finally:
+                    self._run_lock.release()
+            if events:
+                with self._acct_lock:
+                    self.device_seconds_total += device_s
+            else:
+                device_s, fetch_device_s = self._account_device_time(t0), fetch_s
+        counters = get_counters()
+        counters.inc(f"engine.device_s.{kind}", device_s)
+        counters.inc(f"engine.fetch_s.{kind}", fetch_device_s)
         meta = {
             "engineRequestId": uuid.uuid4().hex,
             "deviceSeconds": device_s,
-            "fetchSeconds": time.perf_counter() - t_fetch,
+            "fetchSeconds": fetch_s,
             "family": family_name,
             **extra,
         }

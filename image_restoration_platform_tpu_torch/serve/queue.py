@@ -112,7 +112,7 @@ class JobQueue:
                 from ..obs.tracing import get_tracer
 
                 with get_tracer("job-worker").span(
-                    "job.process",
+                    "queue.attempt",
                     {
                         "job.id": job.id,
                         "job.attempt": job.attempts,

@@ -189,14 +189,16 @@ class RestoratorService:
                 # first; it returns (None, None) where it does not apply
                 pixels, fmt = self._hdr_prepass(image) if self._wants_hdr(image) else (None, None)
                 if pixels is None:
-                    pixels, fmt = self._decode(image, options)
+                    with self._tracer.span("restorator.decode"):
+                        pixels, fmt = self._decode(image, options)
                 if family.startswith("sr-"):
                     return self._restore_sr(pixels, fmt, family, timings, start, span)
 
                 # classification, conditioning and restoration run as one
                 # device program; its time is attributed to classify_ms
                 t = time.perf_counter()
-                canvas, (sh, sw), bucket = self._canonicalize(pixels)
+                with self._tracer.span("restorator.canvas"):
+                    canvas, (sh, sw), bucket = self._canonicalize(pixels)
                 is_jpeg = fmt == "jpeg"
                 # planes whenever the canvas goes straight to the native JPEG
                 # encoder; a host resize afterwards, or the Pillow codec,
@@ -239,19 +241,20 @@ class RestoratorService:
 
                 # host post: crop the letterbox, restore the native size
                 t = time.perf_counter()
-                if egress == "yuv420":
-                    py, pcb, pcr = restored_canvas
-                    yuv_planes = (
-                        py[:sh, :sw],
-                        pcb[: (sh + 1) // 2, : (sw + 1) // 2],
-                        pcr[: (sh + 1) // 2, : (sw + 1) // 2],
-                    )
-                    restored = None
-                else:
-                    yuv_planes = None
-                    restored = restored_canvas[:sh, :sw]
-                    if (sh, sw) != pixels.shape[:2]:
-                        restored = imageio.resize_rgb8(restored, pixels.shape[:2])
+                with self._tracer.span("restorator.crop"):
+                    if egress == "yuv420":
+                        py, pcb, pcr = restored_canvas
+                        yuv_planes = (
+                            py[:sh, :sw],
+                            pcb[: (sh + 1) // 2, : (sw + 1) // 2],
+                            pcr[: (sh + 1) // 2, : (sw + 1) // 2],
+                        )
+                        restored = None
+                    else:
+                        yuv_planes = None
+                        restored = restored_canvas[:sh, :sw]
+                        if (sh, sw) != pixels.shape[:2]:
+                            restored = imageio.resize_rgb8(restored, pixels.shape[:2])
                 timings["restore_ms"] = round((time.perf_counter() - t) * 1000, 3)
                 timings["total_ms"] = round((time.perf_counter() - start) * 1000, 3)
                 span.add_event("restoration_complete", {"restoration.duration_ms": timings["restore_ms"]})
@@ -262,13 +265,15 @@ class RestoratorService:
                 counters.inc("restorations_total")
                 counters.inc("device_seconds_restore", device_s)
                 counters.inc("tpu_cost_usd", self._cost_usd(device_s))
-                if yuv_planes is not None:
-                    jpeg_out = imageio.encode_jpeg_ycbcr420(*yuv_planes, quality=85)
-                else:
-                    jpeg_out = imageio.encode_jpeg(restored, quality=85)
+                with self._tracer.span("restorator.encode"):
+                    if yuv_planes is not None:
+                        jpeg_out = imageio.encode_jpeg_ycbcr420(*yuv_planes, quality=85)
+                    else:
+                        jpeg_out = imageio.encode_jpeg(restored, quality=85)
+                    restored_b64 = base64.b64encode(jpeg_out).decode("ascii")
                 result = {
                     "success": True,
-                    "restoredImage": base64.b64encode(jpeg_out).decode("ascii"),
+                    "restoredImage": restored_b64,
                     "degradationAnalysis": degradation,
                     "enhancedPrompt": enhanced_prompt,
                     "timings": timings,
@@ -330,8 +335,8 @@ class RestoratorService:
         scale = get_family(family).config.scale
         h, w = pixels.shape[:2]
         t = time.perf_counter()
-        canvas, (sh, sw), bucket = self._canonicalize_sr(pixels)
-        yuv_planes = None
+        with self._tracer.span("restorator.canvas"):
+            canvas, (sh, sw), bucket = self._canonicalize_sr(pixels)
         if bucket <= self.SR_TILE_THRESHOLD:
             out_batch, engine_meta = self.engine.sr_batch(canvas[None], family)
             out_canvas = out_batch[0]
@@ -343,29 +348,34 @@ class RestoratorService:
             # huge-canvas egress: the device emits YCbCr 4:2:0 planes (1.5
             # B/px instead of 3) and the native encoder consumes them raw;
             # only when no host resize follows
-            (py, pcb, pcr), engine_meta = self.engine.sr_tiled(canvas, family, output="yuv420")
-            hs, ws = sh * scale, sw * scale
-            yuv_planes = (py[:hs, :ws], pcb[: hs // 2, : ws // 2], pcr[: hs // 2, : ws // 2])
-            out_canvas = None
+            out_canvas, engine_meta = self.engine.sr_tiled(canvas, family, output="yuv420")
         else:
             out_canvas, engine_meta = self.engine.sr_tiled(canvas, family)
-        if yuv_planes is None:
-            restored = out_canvas[: sh * scale, : sw * scale]
-            if (sh, sw) != (h, w):
-                restored = imageio.resize_rgb8(restored, (h * scale, w * scale))
+        with self._tracer.span("restorator.crop"):
+            if isinstance(out_canvas, tuple):  # (Y, Cb, Cr) planes
+                py, pcb, pcr = out_canvas
+                hs, ws = sh * scale, sw * scale
+                yuv_planes = (py[:hs, :ws], pcb[: hs // 2, : ws // 2], pcr[: hs // 2, : ws // 2])
+            else:
+                yuv_planes = None
+                restored = out_canvas[: sh * scale, : sw * scale]
+                if (sh, sw) != (h, w):
+                    restored = imageio.resize_rgb8(restored, (h * scale, w * scale))
         timings["restore_ms"] = round((time.perf_counter() - t) * 1000, 3)
         timings["classify_ms"] = 0.0
         timings["prompt_ms"] = 0.0
         timings["total_ms"] = round((time.perf_counter() - start) * 1000, 3)
         device_s = engine_meta.get("deviceSeconds", 0.0)
         span.set_attributes({"restoration.sr_scale": scale, "restoration.success": True})
-        if yuv_planes is not None:
-            jpeg_bytes = imageio.encode_jpeg_ycbcr420(*yuv_planes, quality=90)
-        else:
-            jpeg_bytes = imageio.encode_jpeg(restored, quality=90)
+        with self._tracer.span("restorator.encode"):
+            if yuv_planes is not None:
+                jpeg_bytes = imageio.encode_jpeg_ycbcr420(*yuv_planes, quality=90)
+            else:
+                jpeg_bytes = imageio.encode_jpeg(restored, quality=90)
+            restored_b64 = base64.b64encode(jpeg_bytes).decode("ascii")
         return {
             "success": True,
-            "restoredImage": base64.b64encode(jpeg_bytes).decode("ascii"),
+            "restoredImage": restored_b64,
             "degradationAnalysis": {},
             "enhancedPrompt": "",
             "timings": timings,

@@ -28,7 +28,7 @@ class FakeEngine:
         self.dispatches: list[tuple[float, str, int]] = []
         self._lock = threading.Lock()
 
-    def restore_batch_async(self, imgs, valid_hw, is_jpeg, family, egress="rgb"):
+    def restore_batch_async(self, imgs, valid_hw, is_jpeg, family, egress="rgb", trace_ids=()):
         with self._lock:
             self.dispatches.append((time.perf_counter(), family, imgs.shape[0]))
         n = imgs.shape[0]
