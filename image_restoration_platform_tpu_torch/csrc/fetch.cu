@@ -1,13 +1,14 @@
 // The engine's fetch on the card: one device-to-host copy of a call's packed
-// outputs into pageable host memory, then the call's "fetched" event on the
-// same stream, in one call that holds no Python interpreter lock.
+// outputs into a page-locked host block, then the call's "fetched" event on
+// the same stream, in one call that holds no Python interpreter lock.
 //
-// A copy into pageable memory returns only once it has completed, so an
-// event recorded from Python after it would wait for the interpreter lock
-// first, and the card's idle time until then would read as the fetch's.
-// Recorded here, the event follows the copy at once: the interval from the
-// call's "packed" event to this one is the copy alone. The stream is
-// synchronised before returning, as PyTorch's own blocking copy does.
+// Into page-locked memory the copy is a DMA that runs at the link's speed,
+// with no staging through CUDA's own bounce buffer; the call returns once the
+// stream has been synchronised, as PyTorch's own blocking copy does. The
+// event is recorded here, right behind the copy, so that it does not wait
+// for the interpreter lock: the interval from the call's "packed" event to
+// this one is the copy alone. The caller owns the block and keeps it from
+// any other copy until the host is done with its bytes (ops/cuda/fetch.py).
 
 #include <cuda_runtime.h>
 

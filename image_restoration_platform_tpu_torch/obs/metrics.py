@@ -3,7 +3,9 @@ image_restoration_platform_tpu/obs/metrics.py: the request-duration ring
 buffer behind ``GET /health/ready`` (count / average / nearest-rank p95 over
 the last ``HEALTH_METRIC_SAMPLE_SIZE`` requests, default 1000), and the
 monotonic counters and gauges of the serving loop (images, device seconds,
-batch sizes, host syncs), plus ``host_flag``."""
+batch sizes, host syncs, the engine's fetches into pinned host memory
+``engine.fetch_pinned.<kind>`` and the pinned bytes they newly allocated
+``engine.pinned_alloc_bytes``), plus ``host_flag``."""
 
 from __future__ import annotations
 

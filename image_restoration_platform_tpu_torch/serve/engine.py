@@ -529,7 +529,13 @@ class RestorationEngine:
         the label's first part, e.g. ``sr_tiled``). On the CPU and across
         cards ``deviceSeconds`` is the host clock's (``_account_device_time``)
         and the fetch's part the host's wait for the copy, which
-        ``fetchSeconds`` is everywhere."""
+        ``fetchSeconds`` is everywhere.
+
+        On one card the copy lands in a page-locked block of the fetch's
+        cache, counted under ``engine.fetch_pinned.<kind>``, and the arrays
+        returned are views of it: the block is not lent to another call
+        until every one of them is gone. On the CPU and across cards they
+        are views of a host tensor of their own."""
         kind = label.split("/", 1)[0]
         with self._tracer.span("engine.call", {"engine.program": label}):
             t0 = time.perf_counter()
@@ -566,6 +572,8 @@ class RestorationEngine:
         counters = get_counters()
         counters.inc(f"engine.device_s.{kind}", device_s)
         counters.inc(f"engine.fetch_s.{kind}", fetch_device_s)
+        if events:
+            counters.inc(f"engine.fetch_pinned.{kind}")
         meta = {
             "engineRequestId": uuid.uuid4().hex,
             "deviceSeconds": device_s,

@@ -41,7 +41,7 @@ def d2h_probe(
         0, 255, (1024, 1024, mb), dtype=np.uint8
     )
     d = torch.from_numpy(a).to(device)
-    host = torch.empty(d.shape, dtype=d.dtype)  # pageable, like the engine's fetch
+    host = torch.empty(d.shape, dtype=d.dtype)  # pageable, like the restore batches' fetch
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(device)
     start.record()

@@ -5,9 +5,11 @@ One synchronous SR job through ``submit_job`` is one trace whose spans nest
 as the job's layers call each other, each inside its parent; the span
 store answers window queries, keeps its bound and maps its clock onto the
 Unix epoch; the batcher's wait and the batch's engine call name the same
-trace; and on the card a tiled call's CUDA-event device time agrees with
-the profiler's device time of the same call. This file imports no JAX, so
-its ``cuda`` test runs on the card's machine
+trace; on the card a tiled call's CUDA-event device time agrees with the
+profiler's device time of the same call; and the engine's fetch lands in
+page-locked blocks, each lent to one result at a time, while the CPU path
+returns arrays of their own. This file imports no JAX, so its ``cuda``
+tests run on the card's machine
 (``python3 -m pytest tests/test_torch_tracing.py -m cuda -q --noconftest``).
 """
 
@@ -262,3 +264,146 @@ def test_call_events_agree_with_the_profiler():
         a, b = spans[0]
         device_s = 1e-9 * sum(e - s for s, e in ops if a <= s < b)
         assert meta["deviceSeconds"] == pytest.approx(device_s, rel=0.05)
+
+
+@pytest.fixture
+def blocks(monkeypatch):
+    """The fetch's cache of pinned blocks over plain host memory, so its
+    lending runs on the CPU."""
+    from image_restoration_platform_tpu_torch.ops.cuda import fetch
+
+    monkeypatch.setattr(fetch, "_pinned", lambda n: torch.empty(n, dtype=torch.uint8))
+    return fetch.PinnedBlocks()
+
+
+def _pinned_bytes():
+    return get_counters().snapshot().get("engine.pinned_alloc_bytes", 0.0)
+
+
+def test_pinned_block_is_lent_again_once_its_arrays_are_gone(blocks):
+    start = _pinned_bytes()
+    first = blocks.lend(48)
+    assert first.shape == (48,) and first.dtype == np.uint8 and first.flags.writeable
+    assert _pinned_bytes() - start == 64  # 48 rounded up to a power of two
+    view = first[8:40].view(np.float32).reshape(2, 4)
+    address = first.ctypes.data
+    del first
+    second = blocks.lend(40)  # the view still holds the first block
+    assert second.ctypes.data != address and _pinned_bytes() - start == 128
+    del view
+    third = blocks.lend(33)
+    assert third.ctypes.data == address and _pinned_bytes() - start == 128
+    del second, third
+    assert blocks.lend(64).ctypes.data in {address, blocks._blocks[1][0].data_ptr()}
+    assert _pinned_bytes() - start == 128
+
+
+def test_pinned_blocks_of_one_size_serve_only_that_size(blocks):
+    start = _pinned_bytes()
+    large = blocks.lend(1000)
+    address = large.ctypes.data
+    del large
+    small = blocks.lend(3)  # a free 1024-byte block is not lent for 3 bytes
+    assert small.ctypes.data != address and _pinned_bytes() - start == 1024 + 4
+    assert blocks.lend(1024).ctypes.data == address and _pinned_bytes() - start == 1024 + 4
+
+
+def test_pinned_blocks_lend_to_many_threads_without_sharing(blocks):
+    """More threads than cores, switching often: a block lent to one thread
+    is never lent to another while its array is alive."""
+    import sys
+
+    errors = []
+
+    def work(tag):
+        for _ in range(200):
+            host = blocks.lend(256)
+            host[:] = tag
+            time.sleep(0)
+            if not (host == tag).all():
+                errors.append(tag)
+            del host
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(tag,)) for tag in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and len(blocks._blocks) <= 16
+
+
+def test_cpu_path_returns_arrays_of_their_own():
+    """On the CPU ``_run_sync`` fetches with no pinned block: each call's
+    arrays are writable, over memory no other call's arrays share, and no
+    ``engine.fetch_pinned.*`` is counted."""
+    from image_restoration_platform_tpu_torch.serve.engine import RestorationEngine
+
+    engine = RestorationEngine(device="cpu")
+    before = get_counters().snapshot()
+    calls = [
+        engine._run_sync("sr_tiled/test", lambda i=i: (torch.full((4, 5, 3), i, dtype=torch.uint8),
+                                                      torch.full((2, 7), float(i))), "sr-x2")[0]
+        for i in range(2)
+    ]
+    (image0, scores0), (image1, scores1) = calls
+    assert image0.shape == (4, 5, 3) and image0.dtype == np.uint8 and scores0.dtype == np.float32
+    assert all(a.flags.writeable for a in (image0, scores0, image1, scores1))
+    assert not np.shares_memory(image0, image1) and not np.shares_memory(scores0, scores1)
+    image0[:] = 255
+    scores0[:] = -1.0
+    assert (image1 == 1).all() and (scores1 == 1.0).all()
+    after = get_counters().snapshot()
+    assert after["engine.device_s.sr_tiled"] > before.get("engine.device_s.sr_tiled", 0.0)
+    assert not [k for k in after if k.startswith("engine.fetch_pinned.") and after[k] != before.get(k, 0.0)]
+    assert after.get("engine.pinned_alloc_bytes", 0.0) == before.get("engine.pinned_alloc_bytes", 0.0)
+
+
+@pytest.mark.cuda
+def test_fetch_lands_in_pinned_blocks_lent_once():
+    """On the card: the fetch returns exactly the card's bytes in page-locked
+    memory, at the 4K canvas's size and at an odd one; two tiled calls in a
+    row return arrays over distinct blocks while the first is alive, the
+    second leaving the first's bytes as they were; both count under
+    ``engine.fetch_pinned.sr_tiled``; and a third call, once the first's
+    arrays are gone, pins nothing new."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the fetch copies from its memory")
+    from image_restoration_platform_tpu_torch.ops.cuda import fetch
+    from image_restoration_platform_tpu_torch.serve.engine import RestorationEngine
+
+    stream = torch.cuda.current_stream()
+    fetched = torch.cuda.Event()
+    fetched.record(stream)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    for n in (50_331_648, 12_582_917):
+        src = torch.randint(0, 256, (n,), dtype=torch.uint8, device="cuda", generator=generator)
+        host = fetch.fetch(src, stream, fetched)
+        assert host.shape == (n,) and host.dtype == np.uint8
+        assert np.array_equal(host, src.cpu().numpy())
+        assert torch.from_numpy(host).is_pinned()
+        del host
+
+    engine = RestorationEngine(device="cuda")
+    rng = np.random.default_rng(0)
+    canvases = [rng.integers(0, 256, (2048, 2048, 3), np.uint8) for _ in range(2)]
+    engine.sr_tiled(canvases[0], "sr-x2")  # build
+    before = get_counters().snapshot()
+    first, _ = engine.sr_tiled(canvases[0], "sr-x2")
+    kept = first.copy()
+    second, _ = engine.sr_tiled(canvases[1], "sr-x2")
+    assert first.shape == second.shape == (4096, 4096, 3)
+    assert not np.shares_memory(first, second) and not np.array_equal(first, second)
+    assert np.array_equal(first, kept)
+    assert torch.from_numpy(first).is_pinned() and torch.from_numpy(second).is_pinned()
+    after = get_counters().snapshot()
+    assert after["engine.fetch_pinned.sr_tiled"] - before.get("engine.fetch_pinned.sr_tiled", 0.0) == 2
+    del first
+    third, _ = engine.sr_tiled(canvases[0], "sr-x2")
+    assert np.array_equal(third, kept)
+    assert get_counters().snapshot()["engine.pinned_alloc_bytes"] == after["engine.pinned_alloc_bytes"]
