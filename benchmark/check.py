@@ -64,9 +64,11 @@ def credit_gap(ledger_entries: list[dict], users: set[str], succeeded: int) -> i
     return abs(charged - succeeded)
 
 
-def reference_answers(cfg: dict, uploads: dict[int, bytes], device, prec=None) -> dict:
-    """Per pool index, the reference's pixels of the upload; ``prec``
-    computes them in a lower precision (the control)."""
+def reference_answers(cfg: dict, network, uploads: dict[int, bytes], device, prec=None) -> dict:
+    """Per pool index, the reference's pixels of the upload, through the
+    configuration's reference ``network`` on the weights at
+    ``cfg["weights_path"]``; ``prec`` computes them in a lower precision
+    (the control)."""
     import torch
 
     from .reference import models, pipeline
@@ -76,7 +78,7 @@ def reference_answers(cfg: dict, uploads: dict[int, bytes], device, prec=None) -
     torch.backends.cudnn.allow_tf32 = False
     params = models.load_npz(cfg["weights_path"], device)
     with torch.inference_mode():
-        return {idx: pipeline.upscale(data, cfg, params, device, prec) for idx, data in uploads.items()}
+        return {idx: pipeline.upscale(data, cfg, network, params, device, prec) for idx, data in uploads.items()}
 
 
 def verdict(numbers: dict, limits: dict) -> tuple[bool, dict]:

@@ -38,17 +38,18 @@ def readings(workload: str, seed: int, device: str, root: str = ROOT) -> dict:
     """The compared numbers of the control against the reference, one seed."""
     import torch
 
-    from benchmark import check, spec
+    from benchmark import check, spec, weights
     from benchmark.reference.models import Precision
     from benchmark.traffic import generator
 
     cell = spec.load_cell(workload, root)
-    cfg = dict(cell.config, weights_path=os.path.join(root, cell.config["weights"]))
+    cfg = dict(cell.config, weights_path=weights.resolve(cell.config, cell.reference, root)[0])
     pool = generator.make_pool(cell.mix, seed)
     picks = sampled_uploads(pool, seed)
     uploads = {i: pool[i].data for i in picks}
-    ref = check.reference_answers(cfg, uploads, device)
-    low = check.reference_answers(cfg, uploads, device, Precision("fp8", torch.bfloat16))
+    network = cell.reference.network
+    ref = check.reference_answers(cfg, network, uploads, device)
+    low = check.reference_answers(cfg, network, uploads, device, Precision("fp8", torch.bfloat16))
     return check.compare([low[i] for i in picks], [ref[i] for i in picks])
 
 

@@ -29,7 +29,7 @@ def step_mfu(run):
     s = steps(run)
     if s is None:
         return None
-    work = sum(flops.image_flops(run.config, st.canvas) for st in s)
+    work = sum(flops.image_flops(run.config, st.canvas, run.cell.reference) for st in s)
     return 100.0 * work / (1e-9 * sum(st.device_ns() for st in s)) / run.peaks["bf16_flops"]
 
 

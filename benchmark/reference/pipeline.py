@@ -1,7 +1,8 @@
 """The served upscale, worked out again from the upload's bytes: the upload
 preprocess (decode with EXIF orientation, the q85 4:4:4 re-encode), the
 decode the restorator makes of that JPEG, the letterbox into the serving
-bucket, the tiled SRNet, the crop and the returned JPEG.
+bucket, the configuration's network tiled over the canvas, the crop and the
+returned JPEG.
 
 The codec is Pillow, as on a machine without the native one. ``upscale``
 returns the pixels of the JPEG a served job would return, so the comparison
@@ -50,8 +51,9 @@ def letterbox(pixels: np.ndarray, buckets) -> tuple[np.ndarray, int]:
     return np.pad(pixels, ((0, b - h), (0, b - w), (0, 0)), mode="edge"), b
 
 
-def upscale(upload: bytes, cfg: dict, params: dict, device, prec: Precision = Precision()) -> np.ndarray:
-    """The returned JPEG's pixels [h*s, w*s, 3] u8 of a tiled upscale."""
+def upscale(upload: bytes, cfg: dict, network, params: dict, device, prec: Precision = Precision()) -> np.ndarray:
+    """The returned JPEG's pixels [h*s, w*s, 3] u8 of a tiled upscale by
+    ``network`` (a reference module's ``network``)."""
     pixels = preprocessed(upload, cfg)
     h, w = pixels.shape[:2]
     buckets = set(cfg["serving"]["size_buckets"]) | {cfg["arch"]["tiled_canvas"]}
@@ -59,6 +61,6 @@ def upscale(upload: bytes, cfg: dict, params: dict, device, prec: Precision = Pr
     if bucket <= cfg["arch"]["direct_max"]:
         raise ValueError("the reference serves the tiled path only")
     s = cfg["arch"]["scale"]
-    out = sr_tiled(params, cfg["arch"], torch.from_numpy(canvas).to(device), prec)
+    out = sr_tiled(network, params, cfg["arch"], torch.from_numpy(canvas).to(device), prec)
     out_u8 = torch.round(torch.clamp(out, 0.0, 255.0)).to(torch.uint8)[: h * s, : w * s]
     return decode(encode_jpeg(out_u8.cpu().numpy(), cfg["serving"]["sr_jpeg_quality"]))

@@ -3,7 +3,8 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Builds the port's service (``AppContext(device="cuda")``, ``Config()``
-defaults and the configuration's serving settings, the shipped weights),
+defaults and the configuration's serving settings, the shipped weights or
+the configuration's seeded ones, ``benchmark/weights.py``),
 makes the cell's uploads from the seed, warms the cell's own shapes, then
 drives ``api/submit.py:submit_job(sync=True)`` for ``--seconds`` and prints,
 as the last line of standard output, one JSON object: ``correct``,
@@ -144,7 +145,7 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device: str =
     ``hooks(ctx)``, for tests, may alter the service before the window."""
     import torch
 
-    from benchmark import check, drive, spec
+    from benchmark import check, drive, spec, weights
     from benchmark.traffic import generator
 
     marks = {"imports": time.time()}
@@ -154,7 +155,10 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device: str =
         trace_mod.initialise()
         marks["profiler"] = time.time()
     cell = spec.load_cell(workload, root)
-    cfg = dict(cell.config, weights_path=os.path.join(root, cell.config["weights"]))
+    weights_path, weights_dir = weights.resolve(cell.config, cell.reference, root)
+    if weights_dir is not None:  # seeded weights: the program reads them as a deployment's weights directory
+        os.environ["IRP_WEIGHTS_DIR"] = weights_dir
+    cfg = dict(cell.config, weights_path=weights_path)
     cell.config = cfg
     clients = int(cell.mix["loop"]["clients"])
     users = [f"client{c}" for c in range(clients)]
@@ -229,7 +233,8 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device: str =
     if device == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    refs = check.reference_answers(cfg, {j.upload: pool[j.upload].data for j in sampled}, device)
+    refs = check.reference_answers(cfg, cell.reference.network, {j.upload: pool[j.upload].data for j in sampled},
+                                   device)
     # no answer at all compares as the worst gap
     numbers = check.compare(answers, [refs[j.upload] for j in sampled]) if sampled else {"pixel_mean_gap": 255.0}
     numbers["failed_jobs"] = float(len(jobs) - ok_jobs + sum(not j.ok for j in warm_jobs))

@@ -46,7 +46,18 @@ def test_configs(bench):
         assert os.path.exists(os.path.join(spec.ROOT, c["file"])) and c["name"] in used
         assert all(NAME.match(k) for k in c["reduced"]) and len(c["reduced"]) <= 16
         with open(os.path.join(spec.ROOT, c["file"])) as f:
-            assert json.load(f)["reduced"] == c["reduced"]
+            cfg = json.load(f)
+        assert cfg["reduced"] == c["reduced"]
+        # the configuration names its reference network, and where its weights come from
+        assert NAME.match(cfg["reference"])
+        assert os.path.exists(os.path.join(spec.BENCH_DIR, "reference", f"{cfg['reference']}.py"))
+        module = spec.load_reference(cfg["reference"])
+        assert callable(module.network) and callable(module.tile_flops)
+        if isinstance(cfg["weights"], dict):
+            assert set(cfg["weights"]) == {"seed"} and isinstance(cfg["weights"]["seed"], int)
+            assert callable(module.init)
+        else:
+            assert os.path.exists(os.path.join(spec.ROOT, cfg["weights"]))
 
 
 def test_workloads(bench):

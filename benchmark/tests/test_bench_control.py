@@ -10,7 +10,7 @@ import os
 
 import torch
 
-from benchmark import check
+from benchmark import check, spec
 from benchmark.reference.models import Precision
 from benchmark.traffic import generator
 
@@ -35,9 +35,10 @@ def test_sr_control_fails_the_limits():
     cfg = _cfg("sr-x2", size_buckets=[256])
     cfg["arch"] = dict(cfg["arch"], direct_max=256, tiled_canvas=512)
     uploads = _uploads("upscale-2k", [300, 420], 2, 5)
-    ref = check.reference_answers(cfg, uploads, "cpu")
+    network = spec.load_reference(cfg["reference"]).network
+    ref = check.reference_answers(cfg, network, uploads, "cpu")
     same = check.compare([ref[i] for i in uploads], [ref[i] for i in uploads])
-    low = check.reference_answers(cfg, uploads, "cpu", Precision("fp8", torch.bfloat16))
+    low = check.reference_answers(cfg, network, uploads, "cpu", Precision("fp8", torch.bfloat16))
     control = check.compare([low[i] for i in uploads], [ref[i] for i in uploads])
     assert check.verdict(dict(same, failed_jobs=0.0, credit_gap=0.0), cfg["limits"])[0]
     assert not check.verdict(dict(control, failed_jobs=0.0, credit_gap=0.0), cfg["limits"])[0], control

@@ -15,6 +15,7 @@ def test_real_cells_load():
     for w in bench["workloads"]:
         cell = spec.load_cell(w["name"])
         assert cell.chips == w["chips"] and cell.config["name"] == w["config"]
+        assert callable(cell.reference.network) and callable(cell.reference.tile_flops)
         assert {m.name for m in cell.end_to_end} >= {"setup_s"}
         assert all(callable(m.read) for m in cell.end_to_end + cell.per_layer)
 

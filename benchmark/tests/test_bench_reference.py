@@ -12,6 +12,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from benchmark import spec
 from benchmark.reference import models, pipeline
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,7 +51,7 @@ def test_upscale_matches_the_port_through_submit_job(pillow_codec):
         assert status == 200
         served = pipeline.decode(base64.b64decode(body["result"]["restoredImage"]))
         with torch.inference_mode():
-            ref = pipeline.upscale(upload, cfg, params, "cpu")
+            ref = pipeline.upscale(upload, cfg, spec.load_reference(cfg["reference"]).network, params, "cpu")
         assert served.shape == ref.shape == (900, 1200, 3)
         d = np.abs(served.astype(int) - ref.astype(int))
         assert d.mean() < 0.05 and d.max() <= 2
@@ -61,13 +62,14 @@ def test_upscale_matches_the_port_through_submit_job(pillow_codec):
 def test_tiled_sr_matches_the_port():
     from image_restoration_platform_tpu_torch.serve.engine import RestorationEngine
 
-    arch = config("sr-x2")["arch"]
+    cfg = config("sr-x2")
+    arch = cfg["arch"]
     params = models.load_npz(os.path.join(ROOT, "weights", "sr-x2.npz"), "cpu")
     canvas = pipeline.decode(photo(480, 480, 3, 90))
     served, _ = RestorationEngine(device="cpu").sr_tiled(canvas, "sr-x2", tile=arch["tile"],
                                                          overlap=arch["overlap"], tile_batch=arch["tile_batch"])
     with torch.inference_mode():
-        ref = models.sr_tiled(params, arch, torch.from_numpy(canvas))
+        ref = models.sr_tiled(spec.load_reference(cfg["reference"]).network, params, arch, torch.from_numpy(canvas))
     ref = torch.round(torch.clamp(ref, 0, 255)).to(torch.uint8).numpy()
     assert served.shape == ref.shape == (960, 960, 3)
     assert np.abs(served.astype(int) - ref.astype(int)).max() <= 1
