@@ -25,7 +25,10 @@ failure (exit code 1):
    and a single tile; the fused GroupNorm's two kernels at GN_SHAPES in
    bf16: the moments' sums within GN_SUM_RTOL of the plain f32 sums on
    unit-variance and offset inputs, the FiLM prologue's y and the affine +
-   SiLU bit for bit), and times the kernel, the plain version and the
+   SiLU bit for bit; the window attention at SwinIR-M's shape, plain and
+   shifted windows, within ``bf16_parity_bar``, and its launches in one
+   swinir-m-x2 tiled call on a 2048 canvas), and times the kernel, the
+   plain version and the
    library call that computes the same function beside the computed bound
    and, for attention, the exponential limit ``exp_ms`` (CUDA events around
    10 back-to-back calls queued behind a sleep kernel, so host dispatch is
@@ -293,6 +296,14 @@ INPUT_SCALES = {"randn": (1.0, 1.0), "peaked": (4.0, 0.125)}
 # against its CPU f32 run measured mean 0.48-0.53 levels and 99.9th
 # percentile 3 levels on such canvases. Scores are f32 on both sides.
 CPU_MEAN_LEVELS, CPU_P999_LEVELS, CPU_SCORES_ATOL = 1.0, 4.0, 1e-4
+
+# SwinIR's window attention (ops/cuda/window_attention.py) at the SR path's
+# shape: a chunk of 8 tiles of 256 is 8 x 32 x 32 windows of 64 tokens with
+# 6 heads of 30 (swinir-m-x2); each row runs plain (shift 0) and shifted
+# (shift 4) windows. Its launches are read from one replay of the family's
+# tiled call on a 2048 canvas: 36 layers x 11 chunks
+WINDOW_ATTENTION_SHAPE = (8, (32, 32), 6, 30)  # tiles, window grid, heads, head dim
+WINDOW_ATTENTION_FAMILY, WINDOW_ATTENTION_CANVAS = "swinir-m-x2", 2048
 
 # the blend: (canvas h x w, tile, overlap, scale, where the path uses it);
 # tiles of T*scale land at scaled origins, as ops/tile.py tiled_apply calls it
@@ -637,6 +648,81 @@ def phase_gn_kernels(torch, report):
         del x, out, ref, got, want
     torch.cuda.empty_cache()
     report["gn_checks"] = rows
+    return rows
+
+
+def phase_window_attention(torch, report):
+    """The window attention kernel at SwinIR-M's shape, plain and shifted:
+    against its plain version (``bf16_parity_bar``), timed beside its byte
+    bound, the plain version and F.scaled_dot_product_attention with the
+    bias and mask as a float mask (on q, k, v and the mask made beforehand);
+    then its launches in one replay of the family's tiled call on a 2048
+    canvas (random weights: the family ships none), and that call's time."""
+    import numpy as np
+
+    from image_restoration_platform_tpu_torch.ops.cuda import attention as A
+    from image_restoration_platform_tpu_torch.ops.cuda import window_attention as W
+    from image_restoration_platform_tpu_torch.serve import RestorationEngine
+    from image_restoration_platform_tpu_torch.utils.peaks import HBM_BYTES_PER_S
+
+    F = torch.nn.functional
+    tiles, (gh, gw), heads, d = WINDOW_ATTENTION_SHAPE
+    nw, c = tiles * gh * gw, heads * d
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn((nw, 64, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+    table = torch.randn((225, heads), generator=gen, device="cuda") * 0.5
+    nbytes = 4 * nw * 64 * c * 2 + table.numel() * 4  # q, k, v read, o written; the table
+    q, k, v = (t.contiguous() for t in qkv.view(tiles, gh * gw, 64, 3, heads, d).permute(3, 0, 1, 4, 2, 5))
+    bias = table[W.relative_position_index(8).cuda()].permute(2, 0, 1)  # [heads, 64, 64]
+    rows = []
+    for shift in (0, 4):
+        ref = W.window_attention_reference(qkv, table, heads, shift, (gh, gw))
+        out = W.window_attention_kernel(qkv, table, heads, shift, (gh, gw))
+        torch.cuda.synchronize()
+        mask = bias[None].expand(gh * gw, -1, -1, -1)
+        if shift:
+            mask = mask + W.region_mask((gh, gw), 8, shift).cuda()[:, None]
+        mask = mask[None].to(torch.bfloat16).contiguous()  # [1, nW, heads, 64, 64]
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        lib = library().permute(0, 1, 3, 2, 4).reshape(nw, 64, c)
+        row = {"kernel": "window_attention", "shape": [nw * heads, 64, d], "qkv": list(qkv.shape), "heads": heads,
+               "shift": shift, "dtype": "bfloat16", "path": f"{WINDOW_ATTENTION_FAMILY} sr_tiled, a chunk of {tiles} tiles",
+               "max_abs_err": float((out.float() - ref.float()).abs().max()), "tolerance": A.bf16_parity_bar(ref),
+               "library_max_abs_err": float((lib.float() - ref.float()).abs().max()),
+               "ms": time_ms(torch, lambda: W.window_attention_kernel(qkv, table, heads, shift, (gh, gw))),
+               "plain_ms": time_ms(torch, lambda: W.window_attention_reference(qkv, table, heads, shift, (gh, gw)),
+                                   groups=10, calls=2),
+               "library_ms": time_ms(torch, library, groups=10, calls=3),
+               "library": "F.scaled_dot_product_attention, the bias and the mask as one float mask",
+               "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+        print(json.dumps(row), flush=True)
+        check(row["max_abs_err"] <= row["tolerance"], f"window attention: {row}")
+        rows.append(row)
+        del ref, out, mask, lib
+    del qkv, q, k, v
+    torch.cuda.empty_cache()
+
+    engine = RestorationEngine(device="cuda")
+    canvas = np.zeros((WINDOW_ATTENTION_CANVAS, WINDOW_ATTENTION_CANVAS, 3), np.uint8)
+    engine.sr_tiled(canvas, WINDOW_ATTENTION_FAMILY)  # builds the graph
+    torch.cuda.reset_peak_memory_stats()
+    before = W.window_attention_kernel.launches
+    t = time.perf_counter()
+    engine.sr_tiled(canvas, WINDOW_ATTENTION_FAMILY)
+    call = {"family": WINDOW_ATTENTION_FAMILY, "canvas": WINDOW_ATTENTION_CANVAS,
+            "launches": W.window_attention_kernel.launches - before, "wall_ms": 1e3 * (time.perf_counter() - t),
+            "memory_peak_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps({"window_attention_sr_tiled": call}), flush=True)
+    check(call["launches"] == 36 * 11, f"window attention launches in one {WINDOW_ATTENTION_CANVAS} sr_tiled call: {call}")
+    del engine
+    torch.cuda.empty_cache()
+    for row in rows:
+        row["launches"] = call["launches"]
+    report["window_attention_checks"] = rows
+    report["window_attention_sr_tiled"] = call
     return rows
 
 
@@ -3289,6 +3375,7 @@ def main() -> int:
     from image_restoration_platform_tpu_torch.ops.cuda import blend as B
     from image_restoration_platform_tpu_torch.ops.cuda import build
     from image_restoration_platform_tpu_torch.ops.cuda import group_norm as G
+    from image_restoration_platform_tpu_torch.ops.cuda import window_attention as W
 
     t_start = time.perf_counter()
     report: dict = {}
@@ -3306,8 +3393,8 @@ def main() -> int:
         return source, build.compile_source(source), time.perf_counter() - t
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE, G.SOURCE)))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE, G.SOURCE, W.SOURCE)))
     report["build_s"] = time.perf_counter() - t
     report["build_s_by_source"] = {source: seconds for source, _, seconds in builds}
     report["ptxas"] = {source: [line.strip() for line in log.splitlines()
@@ -3368,6 +3455,7 @@ def main() -> int:
     rows = phase_kernels(torch, report)
     blend_rows = phase_blend_kernel(torch, report)
     gn_rows = phase_gn_kernels(torch, report)
+    wa_rows = phase_window_attention(torch, report)
     if args.plan_sweep:
         phase_plan_sweep(torch, report)
         if args.report:
@@ -3467,6 +3555,19 @@ def main() -> int:
                        "kernels compute together",
         })
         check(set(gn_paths) <= set(GN_PATH_LAUNCHES[name]), f"{name}: paths read {sorted(GN_PATH_LAUNCHES[name])}")
+    wa_main = wa_rows[-1]  # the shifted layer's row
+    kernels.append({
+        "name": "window_attention",
+        "variant": "mma_sync",
+        "variants": [{k: r[k] for k in ("shift", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+                     for r in wa_rows],
+        "route": "cuda",
+        "source": f"{PKG}/csrc/window_attention.cu",
+        "replaces": "none: the JAX package has no transformer (SwinIR's W-MSA / SW-MSA)",
+        "launches": wa_main["launches"],
+        "launches_by_path": {f"sr_tiled_{WINDOW_ATTENTION_CANVAS}": wa_main["launches"]},
+        **{k: wa_main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
     for k in kernels:
         check(all(n > 0 for n in k["launches_by_path"].values()), f"{k['name']} was not launched on a path: {k}")
     report["kernels"] = kernels

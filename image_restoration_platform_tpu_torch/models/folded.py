@@ -44,6 +44,7 @@ from torch import nn
 
 from . import nn as L
 from .srnet import SRBlock, SRNetConfig, residual_limit
+from .swinir import SwinIRConfig
 from .unet import Level, ResBlock, UNetConfig, embedding
 
 # (p_out, kx_orig) -> (kx_folded, p_in); stride-1 SAME (pad 1_1)
@@ -485,7 +486,10 @@ def is_folded(model) -> bool:
 def folded_model(config, state: dict) -> nn.Module:
     """The folded module of a family's config (``UNetConfig``, a diffusion
     config's ``unet``, or ``SRNetConfig``) with ``state``, the unfolded
-    module's state dict, folded into it."""
+    module's state dict, folded into it. SwinIR has no folded layout: its
+    window attention works on the unfolded token grid."""
+    if isinstance(config, SwinIRConfig):
+        raise ValueError("the W-fold has no folded layout of SwinIR (SwinIRConfig): serve it unfolded")
     if isinstance(config, SRNetConfig):
         model, folded_state = FoldedSRNet(config), fold_state_srnet(state)
     else:

@@ -2,7 +2,10 @@
 
 The families of image_restoration_platform_tpu/models/registry.py: the two
 restore UNets, the two SRNets and the diffusion family, whose model is the
-time-conditioned UNet that ``models.diffusion.restore`` samples with.
+time-conditioned UNet that ``models.diffusion.restore`` samples with; and
+SwinIR-M x2 (models/swinir.py), which the JAX package does not have. An SR
+family is one whose config has a ``scale`` (``is_sr_family``): the serving
+path takes it by that kind, not by its name.
 """
 
 from __future__ import annotations
@@ -17,21 +20,24 @@ import torch
 from ..utils.logging import get_logger
 from . import weights as weights_mod
 from .diffusion import DiffusionConfig
-from .srnet import SRNet, SRNetConfig
 from .nn import takes_attention_kernel
+from .srnet import SRNet, SRNetConfig
+from .swinir import SwinIR, SwinIRConfig
 from .unet import RestorationUNet, UNetConfig
 
 
 @dataclass(frozen=True)
 class ModelFamily:
     name: str
-    config: UNetConfig | SRNetConfig | DiffusionConfig
+    config: UNetConfig | SRNetConfig | SwinIRConfig | DiffusionConfig
 
     def build(self) -> torch.nn.Module:
         """The family's module with zero parameters, ready for
         ``load_state_dict``."""
         if isinstance(self.config, SRNetConfig):
             return SRNet(self.config)
+        if isinstance(self.config, SwinIRConfig):
+            return SwinIR(self.config)
         if isinstance(self.config, DiffusionConfig):
             return RestorationUNet(self.config.unet)
         return RestorationUNet(self.config)
@@ -52,6 +58,7 @@ _FAMILIES: dict[str, ModelFamily] = {
     ),
     "sr-x2": ModelFamily("sr-x2", SRNetConfig(scale=2)),
     "sr-x4": ModelFamily("sr-x4", SRNetConfig(scale=4)),
+    "swinir-m-x2": ModelFamily("swinir-m-x2", SwinIRConfig(scale=2)),
     "diffusion-restore": ModelFamily("diffusion-restore", DiffusionConfig()),
 }
 
@@ -69,6 +76,12 @@ def get_family(name: str) -> ModelFamily:
 
 def list_families() -> list[str]:
     return sorted(_FAMILIES)
+
+
+def is_sr_family(family_name: str) -> bool:
+    """Whether ``family_name`` is a super-resolution family: its config has
+    a ``scale`` (SRNet, SwinIR)."""
+    return isinstance(get_family(family_name).config, (SRNetConfig, SwinIRConfig))
 
 
 def attention_shapes(family_name: str, sizes, batch: int) -> list[tuple[int, int, int, int]]:
@@ -97,10 +110,25 @@ def check_attention_shapes(family_name: str, sizes, batch: int, dtype: torch.dty
     """Raise, naming the family and the shape, if the flash attention
     kernel cannot take a shape the family will give it (head dim, token
     count, batch x heads; ``ops/cuda/attention.py:launch_plan`` states the
-    limits). The engine and the trainer call it when they load a family on
-    a card, so the refusal comes at load and not at the first launch."""
+    limits), or, for a SwinIR family, if the window attention kernel cannot
+    take its window, heads or head dim (``ops/cuda/window_attention.py:
+    check_shapes``). The engine and the trainer call it when they load a
+    family on a card, so the refusal comes at load and not at the first
+    launch."""
     from ..ops.cuda.attention import launch_plan
+    from ..ops.cuda.window_attention import check_shapes
 
+    cfg = get_family(family_name).config
+    if isinstance(cfg, SwinIRConfig):
+        for heads in cfg.num_heads:
+            try:
+                check_shapes(cfg.window_size, heads, cfg.embed_dim)
+            except ValueError as error:
+                raise ValueError(
+                    f"model family {family_name!r} gives the window attention kernel windows of "
+                    f"{cfg.window_size} with {cfg.embed_dim} channels over {heads} heads, which it does not "
+                    f"take: {error}"
+                ) from error
     for shape in attention_shapes(family_name, sizes, batch):
         try:
             launch_plan(shape, dtype)

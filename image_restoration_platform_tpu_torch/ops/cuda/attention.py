@@ -284,6 +284,8 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
 class FlashKernel:
     """ctypes binding of ``irp_flash_attention_fwd`` with its launch count."""
 
+    name = "flash_attention"
+
     def __init__(self) -> None:
         self.launches = 0
         self.launches_by_variant = {name: 0 for name in VARIANTS}

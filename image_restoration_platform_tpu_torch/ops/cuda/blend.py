@@ -46,6 +46,8 @@ def kernel_variant(t: int, c: int, out_w: int, xs: tuple) -> str:
 class BlendKernel:
     """ctypes binding of ``irp_blend_tiles`` with its launch count."""
 
+    name = "blend_tiles"
+
     def __init__(self) -> None:
         self.launches = 0
         self.launches_by_variant = {name: 0 for name in VARIANTS}

@@ -123,6 +123,8 @@ class MomentsKernel:
     """ctypes binding of ``irp_gn_moments`` with its launch count; the FiLM
     prologue is a variant of the same kernel."""
 
+    name = "gn_moments"
+
     def __init__(self) -> None:
         self.launches = 0
         self.launches_by_variant = {"moments": 0, "film": 0}
@@ -170,6 +172,8 @@ class MomentsKernel:
 
 class AffineSiluKernel:
     """ctypes binding of ``irp_gn_affine_silu`` with its launch count."""
+
+    name = "gn_affine_silu"
 
     def __init__(self) -> None:
         self.launches = 0

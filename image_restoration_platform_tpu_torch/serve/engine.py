@@ -73,10 +73,11 @@ import numpy as np
 import torch
 
 from ..config import ServingConfig
-from ..models import ParamCache, get_family
+from ..models import ParamCache, get_family, is_sr_family
 from ..models.folded import folded_model
 from ..models.nn import cast_for_compute
 from ..models.registry import check_attention_shapes
+from ..models.srnet import SRNetConfig
 from ..obs.metrics import get_counters
 from ..obs.tracing import device_trace, get_tracer
 from ..ops.cuda.fetch import fetch
@@ -102,10 +103,10 @@ FOLDED_UNETS = ("restore-unet", "restore-unet-small", "diffusion-restore")
 
 def uses_folded(family_name: str, config: ServingConfig) -> bool:
     """Whether an engine of ``config`` serves ``family_name`` in the W-folded
-    layout (models/folded.py): the SR families under ``fold_w_sr``, the
-    restore UNets under ``fold_w``."""
-    if family_name.startswith("sr-"):
-        return config.fold_w_sr
+    layout (models/folded.py): the SR families that have one (SRNet) under
+    ``fold_w_sr``, the restore UNets under ``fold_w``."""
+    if is_sr_family(family_name):
+        return config.fold_w_sr and isinstance(get_family(family_name).config, SRNetConfig)
     return config.fold_w and family_name in FOLDED_UNETS
 
 
@@ -539,10 +540,12 @@ class RestorationEngine:
         kind = label.split("/", 1)[0]
         with self._tracer.span("engine.call", {"engine.program": label}):
             t0 = time.perf_counter()
-            with device_trace(label):
-                with self._tracer.span("engine.queue"):
-                    self._run_lock.acquire()
-                try:
+            with self._tracer.span("engine.queue"):
+                self._run_lock.acquire()
+            try:
+                # the profiler's label opens once the lock is held: its range
+                # then spans this call's own work, however long the queue
+                with device_trace(label):
                     events = self._call_events()
                     stream = torch.cuda.current_stream(self.device) if events else None
                     with self._tracer.span("engine.launch"):
@@ -562,8 +565,8 @@ class RestorationEngine:
                             host = packed.cpu().numpy()
                         arrays = _unpack(host, outs)
                         fetch_s = time.perf_counter() - t_fetch
-                finally:
-                    self._run_lock.release()
+            finally:
+                self._run_lock.release()
             if events:
                 with self._acct_lock:
                     self.device_seconds_total += device_s
@@ -709,9 +712,13 @@ class RestorationEngine:
         and the output cropped back: the result is the single-device
         forward of the padded canvas, cropped, up to convolution round-off.
         meta adds ``spatialShards``, ``halo`` (the receptive field in input
-        rows) and ``paddedRows``."""
+        rows) and ``paddedRows``. Only SRNet families row-shard: the halo
+        exchange is defined on convolutions."""
         from .programs import build_sr_spatial_program
 
+        if not isinstance(get_family(family_name).config, SRNetConfig):
+            raise ValueError(f"sr_spatial row-shards SRNet families only; model family {family_name!r} "
+                             "has no row-sharded form (its halo exchange covers convolutions only)")
         if self.mesh is None or self.mesh.shape[AXIS_SPATIAL] <= 1:
             raise ValueError("sr_spatial requires a mesh with a spatial axis > 1")
         program, halo, scale, sp = self._cached_program(

@@ -21,8 +21,9 @@ branch, replayed with the host reading the stage flags between them:
   A capture launches no kernel, so the launch counts of the hand-written
   kernels (``FlashKernel.launches``, ``BlendKernel.launches``, the fused
   GroupNorm's ``MomentsKernel.launches`` and ``AffineSiluKernel.launches``,
-  counted in Python where they launch) are set back after it, and every
-  replay adds the launches its graph holds;
+  ``WindowAttentionKernel.launches``, counted in Python where they launch)
+  are set back after it, and every replay adds the launches its graph holds,
+  and publishes them as the counter ``kernels.launches.<kernel name>``;
 - ``EagerExecutable``: the segments run eagerly under the same key. It is
   the executable on the CPU, where nothing is captured (so the key, the
   single-flight gate and the branch selection are all exercised there); on
@@ -56,6 +57,7 @@ import threading
 
 import torch
 
+from ..obs.metrics import get_counters
 from ..parallel.sharding import gather
 from .programs.segments import Program, decide
 
@@ -119,15 +121,17 @@ def _kernels() -> tuple:
     from ..ops.cuda.attention import flash_kernel
     from ..ops.cuda.blend import blend_kernel
     from ..ops.cuda.group_norm import affine_silu_kernel, moments_kernel
+    from ..ops.cuda.window_attention import window_attention_kernel
 
-    return (flash_kernel, blend_kernel, moments_kernel, affine_silu_kernel)
+    return (flash_kernel, blend_kernel, moments_kernel, affine_silu_kernel, window_attention_kernel)
 
 
 class LaunchDelta:
     """The hand-written kernels' launches one capture recorded. Opened before
     the capture; ``close()`` after it takes the delta and sets the counts
     back (a capture launches nothing); ``replay()`` adds the delta, the
-    launches a replay of the graph makes."""
+    launches a replay of the graph makes, to each kernel's count and to the
+    program counter ``kernels.launches.<kernel name>`` (obs/metrics.py)."""
 
     def __init__(self) -> None:
         self._before = [(k, k.launches, dict(k.launches_by_variant)) for k in _kernels()]
@@ -144,8 +148,10 @@ class LaunchDelta:
         return self
 
     def replay(self) -> None:
+        counters = get_counters()
         for kernel, launches, by_variant in self.delta:
             kernel.launches += launches
+            counters.inc(f"kernels.launches.{kernel.name}", launches)
             for v, n in by_variant.items():
                 kernel.launches_by_variant[v] += n
 

@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ...classify.fused import batch_classify_and_condition
-from ...models import diffusion, get_family
+from ...models import diffusion, get_family, is_sr_family
 from ...models import nn as mnn
 from ...models.folded import is_folded
 from ...ops import deblock, deblur
@@ -165,7 +165,7 @@ def build_restore_program(
         raise ValueError("a folded model has no space-to-depth IO")
     cfg = get_family(family_name).config
 
-    if family_name.startswith("sr-"):
+    if is_sr_family(family_name):
 
         def sr_pieces(model, shapes):
             check_layout(model, use_folded)

@@ -30,7 +30,7 @@ import numpy as np
 from .. import imageio
 from ..classify.classifier import DEGRADATION_ORDER, ClassifierService
 from ..config import ServingConfig
-from ..models import get_family
+from ..models import SRNetConfig, get_family, is_sr_family
 from ..obs.metrics import get_counters
 from ..obs.tracing import get_tracer
 from ..ops.resize import fit_inside
@@ -191,7 +191,7 @@ class RestoratorService:
                 if pixels is None:
                     with self._tracer.span("restorator.decode"):
                         pixels, fmt = self._decode(image, options)
-                if family.startswith("sr-"):
+                if is_sr_family(family):
                     return self._restore_sr(pixels, fmt, family, timings, start, span)
 
                 # classification, conditioning and restoration run as one
@@ -329,10 +329,11 @@ class RestoratorService:
         return 1 if mesh is None else int(mesh.shape[AXIS_SPATIAL])
 
     def _restore_sr(self, pixels, fmt, family, timings, start, span) -> dict:
-        """Super-resolution: direct SRNet for small inputs; for large ones
-        the row-sharded program on a mesh with a spatial axis, else tiled
-        overlap-blend."""
-        scale = get_family(family).config.scale
+        """Super-resolution: the family's network direct for small inputs;
+        for large ones the row-sharded program on a mesh with a spatial axis
+        (SRNet families), else tiled overlap-blend."""
+        cfg = get_family(family).config
+        scale = cfg.scale
         h, w = pixels.shape[:2]
         t = time.perf_counter()
         with self._tracer.span("restorator.canvas"):
@@ -340,7 +341,7 @@ class RestoratorService:
         if bucket <= self.SR_TILE_THRESHOLD:
             out_batch, engine_meta = self.engine.sr_batch(canvas[None], family)
             out_canvas = out_batch[0]
-        elif self._spatial_shards() > 1:
+        elif self._spatial_shards() > 1 and isinstance(cfg, SRNetConfig):
             # one canvas row-sharded over the spatial slots, a one-row halo
             # exchanged at every convolution
             out_canvas, engine_meta = self.engine.sr_spatial(canvas, family)

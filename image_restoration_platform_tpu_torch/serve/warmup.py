@@ -14,7 +14,7 @@ modes; the ``"fusion"`` pseudo-surface warms k-image fuse_batch
 first: every graph of an engine shares one memory pool, which then settles
 at the largest graph's working memory. On a mesh engine the same calls
 build the mesh executables (the ``"mesh"`` restore step of every bucket the
-data axis rounds to, ``"sr_tiled_mesh"``), and on a spatial mesh the SR
+data axis rounds to, ``"sr_tiled_mesh"``), and on a spatial mesh the SRNet
 families warm ``sr_spatial`` at every canvas the restorator row-shards in
 place of the tiled programs. A surface the engine serves W-folded
 (``fold_w``, ``fold_w_sr``: models/folded.py) warms its folded executable,
@@ -26,6 +26,8 @@ from __future__ import annotations
 import time
 
 import numpy as np
+
+from ..models import SRNetConfig, get_family, is_sr_family
 
 
 def _batch_buckets(max_batch: int) -> tuple[int, ...]:
@@ -112,13 +114,13 @@ def warmup_serving(
                         f"fusion/k{k}/{size}",
                         lambda c=canvas, v=vhw, j=jf: engine.fuse_batch(c, v, j),
                     )
-        elif fam.startswith("sr-"):
+        elif is_sr_family(fam):
             for size in sizes:
                 if size <= engine.SR_TILE_THRESHOLD:
                     img = np.zeros((1, size, size, 3), dtype=np.uint8)
                     timed(f"{fam}/direct/{size}", lambda i=img, f=fam: engine.sr_batch(i, f))
             tc = sr_tiled_canvas or engine.SR_TILED_CANVAS
-            if _spatial_mesh(engine):
+            if _spatial_mesh(engine) and isinstance(get_family(fam).config, SRNetConfig):
                 # on a spatial mesh the restorator row-shards every canvas
                 # above the direct threshold (restorator._restore_sr)
                 for size in _largest_first({s for s in sizes if s > engine.SR_TILE_THRESHOLD} | {tc}):
