@@ -27,7 +27,10 @@ failure (exit code 1):
    unit-variance and offset inputs, the FiLM prologue's y and the affine +
    SiLU bit for bit; the window attention at SwinIR-M's shape, plain and
    shifted windows, within ``bf16_parity_bar``, and its launches in one
-   swinir-m-x2 tiled call on a 2048 canvas), and times the kernel, the
+   swinir-m-x2 tiled call on a 2048 canvas; the Swin layer's add-norm at
+   that chunk, both forms and both shifts, the sums bit for bit and the
+   LayerNorm within one bf16 ulp, with its launches in the same call, and
+   the PyTorch chain it replaces timed as its yardstick), and times the kernel, the
    plain version and the
    library call that computes the same function beside the computed bound
    and, for attention, the exponential limit ``exp_ms`` (CUDA events around
@@ -304,6 +307,11 @@ CPU_MEAN_LEVELS, CPU_P999_LEVELS, CPU_SCORES_ATOL = 1.0, 4.0, 1e-4
 # tiled call on a 2048 canvas: 36 layers x 11 chunks
 WINDOW_ATTENTION_SHAPE = (8, (32, 32), 6, 30)  # tiles, window grid, heads, head dim
 WINDOW_ATTENTION_FAMILY, WINDOW_ATTENTION_CANVAS = "swinir-m-x2", 2048
+# the Swin layer's add-norm (ops/cuda/swin_add_norm.py) at the same chunk:
+# [tiles, 256, 256, 180] bf16; every form at shift 0 and 4. Its launches in
+# the 2048 call: two a Swin layer and chunk
+SWIN_ADD_NORM_SHAPE = (8, 256, 256, 180)
+SWIN_ADD_NORM_FORMS = ("to_windows", "to_windows_no_add", "from_windows")
 
 # the blend: (canvas h x w, tile, overlap, scale, where the path uses it);
 # tiles of T*scale land at scaled origins, as ops/tile.py tiled_apply calls it
@@ -662,6 +670,7 @@ def phase_window_attention(torch, report):
 
     from image_restoration_platform_tpu_torch.ops.cuda import attention as A
     from image_restoration_platform_tpu_torch.ops.cuda import window_attention as W
+    from image_restoration_platform_tpu_torch.ops.cuda.swin_add_norm import swin_add_norm_kernel
     from image_restoration_platform_tpu_torch.serve import RestorationEngine
     from image_restoration_platform_tpu_torch.utils.peaks import HBM_BYTES_PER_S
 
@@ -710,19 +719,105 @@ def phase_window_attention(torch, report):
     engine.sr_tiled(canvas, WINDOW_ATTENTION_FAMILY)  # builds the graph
     torch.cuda.reset_peak_memory_stats()
     before = W.window_attention_kernel.launches
+    before_norm = swin_add_norm_kernel.launches
     t = time.perf_counter()
     engine.sr_tiled(canvas, WINDOW_ATTENTION_FAMILY)
     call = {"family": WINDOW_ATTENTION_FAMILY, "canvas": WINDOW_ATTENTION_CANVAS,
             "launches": W.window_attention_kernel.launches - before, "wall_ms": 1e3 * (time.perf_counter() - t),
+            "swin_add_norm_launches": swin_add_norm_kernel.launches - before_norm,
             "memory_peak_bytes": torch.cuda.max_memory_allocated()}
     print(json.dumps({"window_attention_sr_tiled": call}), flush=True)
     check(call["launches"] == 36 * 11, f"window attention launches in one {WINDOW_ATTENTION_CANVAS} sr_tiled call: {call}")
+    check(call["swin_add_norm_launches"] == 2 * 36 * 11,
+          f"add-norm launches in one {WINDOW_ATTENTION_CANVAS} sr_tiled call: {call}")
     del engine
     torch.cuda.empty_cache()
     for row in rows:
         row["launches"] = call["launches"]
     report["window_attention_checks"] = rows
     report["window_attention_sr_tiled"] = call
+    return rows
+
+
+def phase_swin_add_norm(torch, report):
+    """The add-norm kernel at SwinIR-M's chunk, each form at shift 0 and 4:
+    against its plain version (the sums bit for bit, the LayerNorm within
+    one bf16 ulp at no less than 2^-8), timed beside its byte bound (each
+    bf16 tensor read or written once, and the affine), the plain version
+    (a gather and F.layer_norm) and, as the yardstick, the PyTorch chain it
+    replaces in the Swin layer (add, F.layer_norm, torch.roll, the window
+    partition's copy; or the reverse's copy, the roll back, the add and
+    F.layer_norm)."""
+    from image_restoration_platform_tpu_torch.ops.cuda import swin_add_norm as S
+    from image_restoration_platform_tpu_torch.utils.peaks import HBM_BYTES_PER_S
+
+    F = torch.nn.functional
+    n, h, w, c = SWIN_ADD_NORM_SHAPE
+    eps, ws = 1e-5, S.KERNEL_WINDOW
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = (torch.randn((n, h, w, c), generator=gen, device="cuda") + 0.3).to(torch.bfloat16)
+    a = (0.5 * torch.randn((n, h, w, c), generator=gen, device="cuda")).to(torch.bfloat16)
+    weight = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    p = a.view(-1, ws * ws, c)  # a window-layout operand of the same bytes
+
+    def partition(y):
+        return y.view(n, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, c)
+
+    def chain(form, shift):
+        if form == "from_windows":
+            y = p.view(n, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(n, h, w, c)
+            if shift:
+                y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
+            s = x + y
+            return s, F.layer_norm(s, (c,), weight, bias, eps)
+        s = x + a if form == "to_windows" else x
+        y = F.layer_norm(s, (c,), weight, bias, eps)
+        if shift:
+            y = torch.roll(y, shifts=(-shift, -shift), dims=(1, 2))
+        return s, partition(y)
+
+    rows = []
+    for form in SWIN_ADD_NORM_FORMS:
+        for shift in (0, 4):
+            if form == "from_windows":
+                def kernel():
+                    return S.swin_add_norm_kernel("from_windows", x, p, weight, bias, eps, shift)
+
+                def plain():
+                    return S.add_norm_from_windows_reference(x, p, weight, bias, eps, shift, ws)
+            else:
+                operand = a if form == "to_windows" else None
+
+                def kernel():
+                    return S.swin_add_norm_kernel("to_windows", x, operand, weight, bias, eps, shift)
+
+                def plain():
+                    return S.add_norm_to_windows_reference(x, operand, weight, bias, eps, shift, ws)
+            (gs, gy), (ps, py), (cs, cy) = kernel(), plain(), chain(form, shift)
+            torch.cuda.synchronize()
+            ulp = torch.exp2(torch.floor(torch.log2(py.float().abs().clamp_min(2.0**-8))) - 7)
+            over = (gy.float() - py.float()).abs() / ulp
+            tensors = 2 if form == "to_windows_no_add" else 4
+            nbytes = tensors * n * h * w * c * 2 + 2 * c * 2
+            row = {"kernel": "swin_add_norm", "form": form, "shift": shift, "shape": list(SWIN_ADD_NORM_SHAPE),
+                   "dtype": "bfloat16", "path": f"{WINDOW_ATTENTION_FAMILY} sr_tiled, a chunk of {n} tiles",
+                   "sums_equal": bool(torch.equal(gs, ps)), "max_norm_err_ulps": float(over.max()),
+                   "norm_unequal_share": float((gy != py).float().mean()),
+                   "max_abs_err": float((gy.float() - py.float()).abs().max()),
+                   "chain_equal": bool(torch.equal(cs, ps) and torch.equal(cy, py)),
+                   "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain, groups=10, calls=3),
+                   "library_ms": time_ms(torch, lambda: chain(form, shift), groups=10, calls=3),
+                   "library": "the PyTorch chain it replaces (add, F.layer_norm, torch.roll, the window copies)",
+                   "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            check(row["sums_equal"] and row["max_norm_err_ulps"] <= 1.0, f"add-norm: {row}")
+            rows.append(row)
+            del gs, gy, ps, py, cs, cy, over, ulp
+    del x, a, p
+    torch.cuda.empty_cache()
+    report["swin_add_norm_checks"] = rows
     return rows
 
 
@@ -3375,6 +3470,7 @@ def main() -> int:
     from image_restoration_platform_tpu_torch.ops.cuda import blend as B
     from image_restoration_platform_tpu_torch.ops.cuda import build
     from image_restoration_platform_tpu_torch.ops.cuda import group_norm as G
+    from image_restoration_platform_tpu_torch.ops.cuda import swin_add_norm as S
     from image_restoration_platform_tpu_torch.ops.cuda import window_attention as W
 
     t_start = time.perf_counter()
@@ -3394,7 +3490,7 @@ def main() -> int:
 
     t = time.perf_counter()
     with ThreadPoolExecutor(max_workers=4) as pool:
-        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE, G.SOURCE, W.SOURCE)))
+        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE, G.SOURCE, W.SOURCE, S.SOURCE)))
     report["build_s"] = time.perf_counter() - t
     report["build_s_by_source"] = {source: seconds for source, _, seconds in builds}
     report["ptxas"] = {source: [line.strip() for line in log.splitlines()
@@ -3455,6 +3551,7 @@ def main() -> int:
     rows = phase_kernels(torch, report)
     blend_rows = phase_blend_kernel(torch, report)
     gn_rows = phase_gn_kernels(torch, report)
+    san_rows = phase_swin_add_norm(torch, report)
     wa_rows = phase_window_attention(torch, report)
     if args.plan_sweep:
         phase_plan_sweep(torch, report)
@@ -3567,6 +3664,21 @@ def main() -> int:
         "launches": wa_main["launches"],
         "launches_by_path": {f"sr_tiled_{WINDOW_ATTENTION_CANVAS}": wa_main["launches"]},
         **{k: wa_main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
+    san_main = next(r for r in san_rows if r["form"] == "to_windows" and r["shift"] == 4)
+    san_launches = report["window_attention_sr_tiled"]["swin_add_norm_launches"]
+    kernels.append({
+        "name": "swin_add_norm",
+        "variant": "to_windows",
+        "variants": [{k: r[k] for k in ("form", "shift", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+                     for r in san_rows],
+        "route": "cuda",
+        "source": f"{PKG}/csrc/swin_add_norm.cu",
+        "replaces": "none: the JAX package has no transformer (SwinIR's residual adds, LayerNorms, roll and "
+                    "window partition and reverse)",
+        "launches": san_launches,
+        "launches_by_path": {f"sr_tiled_{WINDOW_ATTENTION_CANVAS}": san_launches},
+        **{k: san_main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
     for k in kernels:
         check(all(n > 0 for n in k["launches_by_path"].values()), f"{k['name']} was not launched on a path: {k}")

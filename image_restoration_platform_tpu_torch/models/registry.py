@@ -112,14 +112,22 @@ def check_attention_shapes(family_name: str, sizes, batch: int, dtype: torch.dty
     count, batch x heads; ``ops/cuda/attention.py:launch_plan`` states the
     limits), or, for a SwinIR family, if the window attention kernel cannot
     take its window, heads or head dim (``ops/cuda/window_attention.py:
-    check_shapes``). The engine and the trainer call it when they load a
-    family on a card, so the refusal comes at load and not at the first
-    launch."""
+    check_shapes``) or the add-norm kernel its window or width
+    (``ops/cuda/swin_add_norm.py:check_shapes``). The engine and the
+    trainer call it when they load a family on a card, so the refusal comes
+    at load and not at the first launch."""
+    from ..ops.cuda import swin_add_norm
     from ..ops.cuda.attention import launch_plan
     from ..ops.cuda.window_attention import check_shapes
 
     cfg = get_family(family_name).config
     if isinstance(cfg, SwinIRConfig):
+        try:
+            swin_add_norm.check_shapes(cfg.window_size, cfg.embed_dim)
+        except ValueError as error:
+            raise ValueError(f"model family {family_name!r} gives the add-norm kernel windows of "
+                             f"{cfg.window_size} with {cfg.embed_dim} channels, which it does not take: {error}"
+                             ) from error
         for heads in cfg.num_heads:
             try:
                 check_shapes(cfg.window_size, heads, cfg.embed_dim)

@@ -14,9 +14,11 @@ and the padding cropped. The pixel shuffle is PyTorch's (channel-major,
 
 Activations are NHWC at every layer, so a Swin layer's tokens are the
 ``[B, H, W, C]`` grid itself. The linears (``F.linear``, the bias in the
-product's epilogue), LayerNorm (f32 statistics inside PyTorch's kernel),
-GELU, roll and the convs are plain PyTorch; the window
-attention is ``ops/cuda/window_attention.py`` (the hand-written kernel on a
+product's epilogue), GELU, the convs and the patch embedding's and the final
+LayerNorm (f32 statistics inside PyTorch's kernel) are plain PyTorch; the
+window attention is ``ops/cuda/window_attention.py``, and each Swin layer's
+residual adds, its two LayerNorms, the roll and the window partition and
+reverse are ``ops/cuda/swin_add_norm.py`` (both hand-written kernels on a
 card). Parameter names are the npz layout of the benchmark's reference
 (``benchmark/reference/swinir.py``): ``layers/<i>/blocks/<j>/attn/qkv`` and
 so on, convs HWIO in the file, dense kernels ``[in, out]``, the bias table
@@ -34,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda.swin_add_norm import add_norm_from_windows, add_norm_to_windows
 from ..ops.cuda.window_attention import window_attention
 from . import nn as L
 
@@ -74,8 +77,11 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.eps = eps
 
+    def affine(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.scale.to(dtype), self.bias.to(dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, (x.shape[-1],), self.scale.to(x.dtype), self.bias.to(x.dtype), self.eps)
+        return F.layer_norm(x, (x.shape[-1],), *self.affine(x.dtype), self.eps)
 
     def compute_params(self):
         return (self.scale, self.bias)
@@ -101,21 +107,6 @@ def linear(layer: L.Dense, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, layer.w.t(), layer.b)
 
 
-def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
-    """[B, H, W, C] -> [B * nW, window^2, C], windows batch-major and
-    row-major over the grid, tokens row-major in a window."""
-    b, h, w, c = x.shape
-    x = x.view(b, h // window, window, w // window, window, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(-1, window * window, c)
-
-
-def window_reverse(windows: torch.Tensor, window: int, b: int, h: int, w: int) -> torch.Tensor:
-    """Inverse of ``window_partition``."""
-    c = windows.shape[-1]
-    x = windows.view(b, h // window, w // window, window, window, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h, w, c)
-
-
 class WindowAttention(nn.Module):
     def __init__(self, dim: int, heads: int, window: int):
         super().__init__()
@@ -137,7 +128,9 @@ class Mlp(nn.Module):
 
 class SwinLayer(nn.Module):
     """Pre-LayerNorm window attention (shifted by ``shift`` before it and
-    back after it) and MLP, each on a residual."""
+    back after it) and MLP, each on a residual. The layer's input is
+    ``x + a`` and its output ``x' + m``: the MLP's residual add is left to
+    the next layer's first add-norm kernel, which reads both terms anyway."""
 
     def __init__(self, dim: int, heads: int, window: int, shift: int, mlp_ratio: float):
         super().__init__()
@@ -147,19 +140,16 @@ class SwinLayer(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, c = x.shape
+    def forward(self, x: torch.Tensor, a: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(x, a) [B, H, W, C] (``a`` None: the input is ``x``) -> (x', m),
+        the output's two terms."""
+        _, h, w, _ = x.shape
         s, ws = self.shift, self.window
-        y = self.norm1(x)
-        if s:
-            y = torch.roll(y, shifts=(-s, -s), dims=(1, 2))
-        qkv = linear(self.attn.qkv, window_partition(y, ws))
-        o = window_attention(qkv, self.attn.relative_position_bias_table, self.attn.heads, s, (h // ws, w // ws))
-        y = window_reverse(linear(self.attn.proj, o), ws, b, h, w)
-        if s:
-            y = torch.roll(y, shifts=(s, s), dims=(1, 2))
-        x = x + y
-        return x + self.mlp(self.norm2(x))
+        x, y = add_norm_to_windows(x, a, *self.norm1.affine(x.dtype), self.norm1.eps, s, ws)
+        o = window_attention(linear(self.attn.qkv, y), self.attn.relative_position_bias_table, self.attn.heads, s,
+                             (h // ws, w // ws))
+        x, y = add_norm_from_windows(x, linear(self.attn.proj, o), *self.norm2.affine(x.dtype), self.norm2.eps, s, ws)
+        return x, self.mlp(y)
 
     def init_(self, gen: torch.Generator) -> None:
         for layer in (self.attn.qkv, self.attn.proj, self.mlp.fc1, self.mlp.fc2):
@@ -171,7 +161,9 @@ class SwinLayer(nn.Module):
 
 class RSTB(nn.Module):
     """Residual Swin transformer block: Swin layers, then a 3 x 3 conv, on
-    the block's residual."""
+    the block's residual. Its first layer takes no operand, and the last
+    layer's two terms are summed in PyTorch before the conv, as is the
+    conv's output with the block's input: the conv reads its input whole."""
 
     def __init__(self, dim: int, depth: int, heads: int, window: int, mlp_ratio: float):
         super().__init__()
@@ -180,10 +172,10 @@ class RSTB(nn.Module):
         self.conv = L.Conv(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x
+        y, m = x, None
         for block in self.blocks:
-            y = block(y)
-        return self.conv(y) + x
+            y, m = block(y, m)
+        return self.conv(y + m) + x
 
 
 class SwinIR(nn.Module):

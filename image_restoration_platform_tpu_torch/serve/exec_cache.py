@@ -21,7 +21,8 @@ branch, replayed with the host reading the stage flags between them:
   A capture launches no kernel, so the launch counts of the hand-written
   kernels (``FlashKernel.launches``, ``BlendKernel.launches``, the fused
   GroupNorm's ``MomentsKernel.launches`` and ``AffineSiluKernel.launches``,
-  ``WindowAttentionKernel.launches``, counted in Python where they launch)
+  ``WindowAttentionKernel.launches``, ``SwinAddNormKernel.launches``,
+  counted in Python where they launch)
   are set back after it, and every replay adds the launches its graph holds,
   and publishes them as the counter ``kernels.launches.<kernel name>``;
 - ``EagerExecutable``: the segments run eagerly under the same key. It is
@@ -121,9 +122,11 @@ def _kernels() -> tuple:
     from ..ops.cuda.attention import flash_kernel
     from ..ops.cuda.blend import blend_kernel
     from ..ops.cuda.group_norm import affine_silu_kernel, moments_kernel
+    from ..ops.cuda.swin_add_norm import swin_add_norm_kernel
     from ..ops.cuda.window_attention import window_attention_kernel
 
-    return (flash_kernel, blend_kernel, moments_kernel, affine_silu_kernel, window_attention_kernel)
+    return (flash_kernel, blend_kernel, moments_kernel, affine_silu_kernel, window_attention_kernel,
+            swin_add_norm_kernel)
 
 
 class LaunchDelta:
