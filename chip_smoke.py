@@ -2592,6 +2592,7 @@ def phase_graphs(torch, np, report, card, engine):
     from image_restoration_platform_tpu_torch.ops.cuda.blend import blend_kernel
     from image_restoration_platform_tpu_torch.ops.deblur import disk_psf, motion_psf
     from image_restoration_platform_tpu_torch.serve import RestorationEngine
+    from image_restoration_platform_tpu_torch.serve.programs import sr as sr_programs
 
     t_phase = time.perf_counter()
     cfg = engine.config
@@ -2644,7 +2645,7 @@ def phase_graphs(torch, np, report, card, engine):
         triple = np.stack([images[n] for n in ("clean", "jpeg", "blur")])
         compare(f"fusion/k3/{size}", lambda e, c=triple: e.fuse_batch(
             c, np.tile([[size, size]], (3, 1)).astype(np.int32), np.asarray([0, 1, 0], np.float32)))
-        if size <= engine.SR_TILE_THRESHOLD:
+        if size <= sr_programs.DIRECT_MAX:
             compare(f"sr-x2/direct/{size}", lambda e, c=images["clean"]: e.sr_batch(c[None], "sr-x2"))
     canvas2048 = _photo_large(np, 11, 2048, 2048)
     for output in ("rgb", "yuv420"):

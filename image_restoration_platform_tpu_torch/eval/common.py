@@ -121,7 +121,7 @@ def serving_forward(family, model, degraded_f32, dtype: torch.dtype = torch.bflo
     its byte rounding, as the reference's OOD gates read theirs; rounded to
     bytes it is the engine's served output."""
     name = getattr(family, "name", family)
-    if name.startswith("sr-") or name == "diffusion-restore":
+    if get_family(name).kind != "restore":
         raise ValueError(f"serving_forward runs the restore UNet families, not {name}")
     folded = is_folded(model)
     program = build_restore_program(name, dtype=dtype, use_folded=folded,

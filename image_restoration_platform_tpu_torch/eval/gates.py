@@ -383,6 +383,6 @@ def family_gates(family_name: str, model, dtype: torch.dtype, device) -> dict:
             out.update(real_checks(real_report(model, dtype)))
         return out
     photo = heldout(HELDOUT_PHOTO_SEED, True, device)
-    if family_name == "diffusion-restore":
+    if get_family(family_name).kind == "diffusion":
         return in_distribution_checks(diffusion_report(model, rich, photo, dtype, device))
     return in_distribution_checks(sr_report(family_name, model, rich, photo, dtype))

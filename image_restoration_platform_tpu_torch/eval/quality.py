@@ -30,6 +30,7 @@ import os
 
 import torch
 
+from ..models import get_family
 from ..models import weights as W
 from ..serve.engine import resolve_device
 from ..train.data import DataConfig, synthetic_batch
@@ -64,7 +65,7 @@ def evaluate(n: int = 8, seeds: int = 4, size: int = 128, seed: int = 999_001, f
             pins, pouts = [], []
             for k in range(seeds):
                 deg, clean, cond = _batch(seed + k, n, dcfg, device)
-                if fam_name == "diffusion-restore":
+                if get_family(fam_name).kind == "diffusion":
                     noise = gates.diffusion_noise(deg.shape, device, dtype)
                     pred = gates.diffusion_restore(model, deg, cond, noise, dtype)
                 else:

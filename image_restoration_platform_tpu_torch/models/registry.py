@@ -3,9 +3,9 @@
 The families of image_restoration_platform_tpu/models/registry.py: the two
 restore UNets, the two SRNets and the diffusion family, whose model is the
 time-conditioned UNet that ``models.diffusion.restore`` samples with; and
-SwinIR-M x2 (models/swinir.py), which the JAX package does not have. An SR
-family is one whose config has a ``scale`` (``is_sr_family``): the serving
-path takes it by that kind, not by its name.
+SwinIR-M x2 (models/swinir.py), which the JAX package does not have.
+What a family is follows from its config's type; ``ModelFamily`` answers
+it, and the rest of the port asks it, never a family's name or config type.
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.cuda.attention import launch_plan
 from ..utils.logging import get_logger
+from . import swinir
 from . import weights as weights_mod
 from .diffusion import DiffusionConfig
 from .nn import takes_attention_kernel
@@ -41,6 +43,82 @@ class ModelFamily:
         if isinstance(self.config, DiffusionConfig):
             return RestorationUNet(self.config.unet)
         return RestorationUNet(self.config)
+
+    @property
+    def kind(self) -> str:
+        """``"sr"`` (SRNet, SwinIR), ``"diffusion"`` (the time-conditioned
+        UNet the sampler runs) or ``"restore"`` (a restore UNet)."""
+        if isinstance(self.config, (SRNetConfig, SwinIRConfig)):
+            return "sr"
+        return "diffusion" if isinstance(self.config, DiffusionConfig) else "restore"
+
+    @property
+    def has_folded_layout(self) -> bool:
+        """Whether models/folded.py has a W-folded layout of the family: all
+        but SwinIR, whose window attention works on the unfolded token grid."""
+        return not isinstance(self.config, SwinIRConfig)
+
+    @property
+    def row_shards(self) -> bool:
+        """Whether a canvas row-shards over spatial slots (parallel/halo.py):
+        SRNet only, the halo exchange covering convolutions only."""
+        return isinstance(self.config, SRNetConfig)
+
+    @property
+    def trainable(self) -> bool:
+        """Whether the trainer (train/) has a loss for the family: all but SwinIR."""
+        return not isinstance(self.config, SwinIRConfig)
+
+    def uses_folded(self, serving) -> bool:
+        """Whether an engine of ``serving`` (``config.ServingConfig``) serves
+        the family W-folded: it has a folded layout and its kind's flag,
+        ``fold_w_sr`` for SR and ``fold_w`` otherwise, is on."""
+        return self.has_folded_layout and (serving.fold_w_sr if self.kind == "sr" else serving.fold_w)
+
+    def uses_s2d_io(self, serving) -> bool:
+        """Whether an engine of ``serving`` serves the family with
+        space-to-depth IO: under ``s2d_io``, an unfolded restore UNet with an
+        s2d stem and RGB in and out (the folded layout has its own)."""
+        c = self.config
+        return (serving.s2d_io and self.kind == "restore" and not self.uses_folded(serving) and c.input_scale > 1
+                and c.in_channels == c.out_channels and not c.time_conditioned)
+
+    def attention_shapes(self, sizes, batch: int) -> list[tuple[int, int, int, int]]:
+        """The [N, H, T, D] shapes at which the family launches the flash
+        attention kernel for square inputs of ``sizes`` in batches of up to
+        ``batch``: the UNet bottleneck's tokens at each size up to
+        ``max_attn_tokens``, routed as ``Attention`` routes them."""
+        cfg = getattr(self.config, "unet", self.config)  # the diffusion family's model
+        if not isinstance(cfg, UNetConfig):
+            return []
+        channels = cfg.base_channels * cfg.channel_mults[-1]
+        head_dim = channels // cfg.attn_heads
+        shapes = []
+        for size in sizes:
+            side = -(-size // cfg.input_scale)
+            for _ in range(len(cfg.channel_mults) - 1):
+                side = -(-side // 2)  # a stride-2 SAME conv
+            tokens = side * side
+            if tokens <= cfg.max_attn_tokens and takes_attention_kernel(tokens, head_dim):
+                shapes.append((batch, cfg.attn_heads, tokens, head_dim))
+        return shapes
+
+    def check_kernel_shapes(self, sizes, batch: int, dtype: torch.dtype) -> None:
+        """Raise, naming the family and the shape, if a hand-written kernel
+        cannot take a shape the family gives it: the flash attention kernel
+        one of ``attention_shapes`` (``ops/cuda/attention.py:launch_plan``
+        states the limits), SwinIR's kernels its windows, heads and width
+        (``models.swinir.check_kernel_shapes``)."""
+        if isinstance(self.config, SwinIRConfig):
+            swinir.check_kernel_shapes(self.name, self.config)
+        for shape in self.attention_shapes(sizes, batch):
+            try:
+                launch_plan(shape, dtype)
+            except (ValueError, TypeError) as error:
+                raise ValueError(
+                    f"model family {self.name!r} gives the attention kernel [N, H, T, D] = {list(shape)}, "
+                    f"which it does not take: {error}"
+                ) from error
 
 
 _FAMILIES: dict[str, ModelFamily] = {
@@ -79,72 +157,19 @@ def list_families() -> list[str]:
 
 
 def is_sr_family(family_name: str) -> bool:
-    """Whether ``family_name`` is a super-resolution family: its config has
-    a ``scale`` (SRNet, SwinIR)."""
-    return isinstance(get_family(family_name).config, (SRNetConfig, SwinIRConfig))
+    """Whether ``family_name`` is a super-resolution family (SRNet, SwinIR)."""
+    return get_family(family_name).kind == "sr"
 
 
 def attention_shapes(family_name: str, sizes, batch: int) -> list[tuple[int, int, int, int]]:
-    """The [N, H, T, D] shapes at which ``family_name`` launches the flash
-    attention kernel for square inputs of ``sizes`` in batches of up to
-    ``batch``: the bottleneck's tokens at each size up to
-    ``max_attn_tokens``, routed as ``Attention`` routes them."""
-    cfg = get_family(family_name).config
-    cfg = getattr(cfg, "unet", cfg)  # the diffusion family's model
-    if not isinstance(cfg, UNetConfig):
-        return []
-    channels = cfg.base_channels * cfg.channel_mults[-1]
-    head_dim = channels // cfg.attn_heads
-    shapes = []
-    for size in sizes:
-        side = -(-size // cfg.input_scale)
-        for _ in range(len(cfg.channel_mults) - 1):
-            side = -(-side // 2)  # a stride-2 SAME conv
-        tokens = side * side
-        if tokens <= cfg.max_attn_tokens and takes_attention_kernel(tokens, head_dim):
-            shapes.append((batch, cfg.attn_heads, tokens, head_dim))
-    return shapes
+    return get_family(family_name).attention_shapes(sizes, batch)
 
 
 def check_attention_shapes(family_name: str, sizes, batch: int, dtype: torch.dtype) -> None:
-    """Raise, naming the family and the shape, if the flash attention
-    kernel cannot take a shape the family will give it (head dim, token
-    count, batch x heads; ``ops/cuda/attention.py:launch_plan`` states the
-    limits), or, for a SwinIR family, if the window attention kernel cannot
-    take its window, heads or head dim (``ops/cuda/window_attention.py:
-    check_shapes``) or the add-norm kernel its window or width
-    (``ops/cuda/swin_add_norm.py:check_shapes``). The engine and the
-    trainer call it when they load a family on a card, so the refusal comes
-    at load and not at the first launch."""
-    from ..ops.cuda import swin_add_norm
-    from ..ops.cuda.attention import launch_plan
-    from ..ops.cuda.window_attention import check_shapes
-
-    cfg = get_family(family_name).config
-    if isinstance(cfg, SwinIRConfig):
-        try:
-            swin_add_norm.check_shapes(cfg.window_size, cfg.embed_dim)
-        except ValueError as error:
-            raise ValueError(f"model family {family_name!r} gives the add-norm kernel windows of "
-                             f"{cfg.window_size} with {cfg.embed_dim} channels, which it does not take: {error}"
-                             ) from error
-        for heads in cfg.num_heads:
-            try:
-                check_shapes(cfg.window_size, heads, cfg.embed_dim)
-            except ValueError as error:
-                raise ValueError(
-                    f"model family {family_name!r} gives the window attention kernel windows of "
-                    f"{cfg.window_size} with {cfg.embed_dim} channels over {heads} heads, which it does not "
-                    f"take: {error}"
-                ) from error
-    for shape in attention_shapes(family_name, sizes, batch):
-        try:
-            launch_plan(shape, dtype)
-        except (ValueError, TypeError) as error:
-            raise ValueError(
-                f"model family {family_name!r} gives the attention kernel [N, H, T, D] = {list(shape)}, "
-                f"which it does not take: {error}"
-            ) from error
+    """``ModelFamily.check_kernel_shapes``: the engine and the trainer call it
+    when they load a family on a card, so the refusal comes at load and not
+    at the first launch."""
+    get_family(family_name).check_kernel_shapes(sizes, batch, dtype)
 
 
 class ParamCache:

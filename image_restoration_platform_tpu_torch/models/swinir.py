@@ -37,6 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.swin_add_norm import add_norm_from_windows, add_norm_to_windows
+from ..ops.cuda.swin_add_norm import check_shapes as check_add_norm_shapes
+from ..ops.cuda.window_attention import check_shapes as check_window_shapes
 from ..ops.cuda.window_attention import window_attention
 from . import nn as L
 
@@ -68,6 +70,21 @@ class SwinIRConfig:
         """The upsampler's pixel-shuffle factors, as published: one x3, or
         log2(scale) stages of x2."""
         return [3] if self.scale == 3 else [2] * int(math.log2(self.scale))
+
+
+def check_kernel_shapes(name: str, cfg: SwinIRConfig) -> None:
+    """Raise, naming the family ``name``, unless the add-norm kernel takes its
+    windows and width (``ops/cuda/swin_add_norm.py:check_shapes``) and the
+    window attention kernel its windows, heads and head dim
+    (``ops/cuda/window_attention.py:check_shapes``)."""
+    try:
+        check_add_norm_shapes(cfg.window_size, cfg.embed_dim)
+        for heads in cfg.num_heads:
+            check_window_shapes(cfg.window_size, heads, cfg.embed_dim)
+    except ValueError as error:
+        raise ValueError(f"model family {name!r} gives its kernels windows of {cfg.window_size} with "
+                         f"{cfg.embed_dim} channels over {cfg.num_heads} heads, which they do not take: {error}"
+                         ) from error
 
 
 class LayerNorm(nn.Module):

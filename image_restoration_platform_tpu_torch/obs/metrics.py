@@ -5,7 +5,8 @@ the last ``HEALTH_METRIC_SAMPLE_SIZE`` requests, default 1000), and the
 monotonic counters and gauges of the serving loop (images, device seconds,
 batch sizes, host syncs, the engine's fetches into pinned host memory
 ``engine.fetch_pinned.<kind>`` and the pinned bytes they newly allocated
-``engine.pinned_alloc_bytes``), plus ``host_flag``."""
+``engine.pinned_alloc_bytes``), plus ``host_flag``; and ``KERNELS``, the
+hand-written kernels whose launches are counted."""
 
 from __future__ import annotations
 
@@ -78,6 +79,10 @@ class Counters:
 
 _global_metrics = RequestMetrics()
 _global_counters = Counters()
+# the hand-written kernels' bindings (ops/cuda/build.py ``Kernel``), each added
+# as it is made: a CUDA graph's capture takes their launches back and its
+# replays publish them as ``kernels.launches.<name>`` (serve/exec_cache.py)
+KERNELS: list = []
 
 
 def record_request_duration(duration_ms: float) -> None:

@@ -281,29 +281,24 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return out.to(q.dtype)
 
 
-class FlashKernel:
+class FlashKernel(build.Kernel):
     """ctypes binding of ``irp_flash_attention_fwd`` with its launch count."""
 
-    name = "flash_attention"
+    name, variants = "flash_attention", tuple(VARIANTS)
+    source, symbol = SOURCE, "irp_flash_attention_fwd"
+    argtypes = (
+        *[ctypes.c_void_p] * 4,  # q, k, v, o
+        # nh, t, d, variant, stages, full_heads, clusters, splits, smem_bytes
+        *[ctypes.c_int] * 9,
+        ctypes.c_float,  # scale
+    )
 
     def __init__(self) -> None:
-        self.launches = 0
-        self.launches_by_variant = {name: 0 for name in VARIANTS}
-        self._fn = None
+        super().__init__()
         self._sm_counts: dict = {}
 
-    def _bind(self):
-        if self._fn is None:
-            fn = build.load(SOURCE).irp_flash_attention_fwd
-            fn.argtypes = [
-                *[ctypes.c_void_p] * 4,  # q, k, v, o
-                # nh, t, d, variant, stages, full_heads, clusters, splits, smem_bytes
-                *[ctypes.c_int] * 9,
-                ctypes.c_float, ctypes.c_void_p,  # scale, stream
-            ]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    def describe_error(self, err: int) -> str:
+        return f"tensor-map encode, CUresult {err - 10000}" if err >= 10000 else super().describe_error(err)
 
     def _sm_count(self, device: torch.device) -> int:
         if device not in self._sm_counts:
@@ -333,20 +328,10 @@ class FlashKernel:
                   and plan == wgmma_plan(n * h, t, plan.block_q // WGMMA_WARPGROUP_ROWS, plan.full_heads,
                                          d=d, splits=plan.splits, clusters=plan.clusters)):
             raise ValueError(f"{plan} is no launch of the flash attention kernel on {tuple(q.shape)}")
-        fn = self._bind()
         out = torch.empty_like(q)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        with torch.cuda.device(q.device):
-            err = fn(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                n * h, t, d, VARIANTS[plan.variant], plan.stages, plan.full_heads, plan.clusters,
-                plan.splits, plan.shared_bytes, 1.0 / math.sqrt(d), stream,
-            )
-        if err != 0:
-            what = f"tensor-map encode, CUresult {err - 10000}" if err >= 10000 else f"cudaError {err}"
-            raise RuntimeError(f"flash attention launch failed ({plan}): {what}")
-        self.launches += 1
-        self.launches_by_variant[plan.variant] += 1
+        self.launch(q.device, plan.variant, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n * h, t, d,
+                    VARIANTS[plan.variant], plan.stages, plan.full_heads, plan.clusters, plan.splits,
+                    plan.shared_bytes, 1.0 / math.sqrt(d))
         return out
 
 

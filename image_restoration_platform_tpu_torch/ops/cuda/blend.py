@@ -43,27 +43,19 @@ def kernel_variant(t: int, c: int, out_w: int, xs: tuple) -> str:
     return "vector" if all(v % VECTOR_FLOATS == 0 for v in lengths) else "scalar"
 
 
-class BlendKernel:
+class BlendKernel(build.Kernel):
     """ctypes binding of ``irp_blend_tiles`` with its launch count."""
 
-    name = "blend_tiles"
+    name, variants = "blend_tiles", tuple(VARIANTS)
+    source, symbol = SOURCE, "irp_blend_tiles"
+    argtypes = (*[ctypes.c_void_p] * 5, *[ctypes.c_int] * 7)
 
     def __init__(self) -> None:
-        self.launches = 0
-        self.launches_by_variant = {name: 0 for name in VARIANTS}
-        self._fn = None
+        super().__init__()
         # per device: the [T, T] window table and the origin arrays of a grid
         # (a handful each: canvases come in buckets and tiles in one size)
         self._windows: dict = {}
         self._origins: dict = {}
-
-    def _bind(self):
-        if self._fn is None:
-            fn = build.load(SOURCE).irp_blend_tiles
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
 
     def _window(self, t: int, device: torch.device) -> torch.Tensor:
         key = (t, device)
@@ -105,21 +97,12 @@ class BlendKernel:
             variant = allowed
         elif variant not in VARIANTS or (variant == "vector" and allowed != "vector"):
             raise ValueError(f"blend kernel variant {variant!r} does not take this geometry ({allowed})")
-        fn = self._bind()
         device = tiles.device
         window = self._window(t, device)
         ys_d, xs_d = self._origin_array(ys, device), self._origin_array(xs, device)
         out = torch.empty((out_h, out_w, c), dtype=torch.float32, device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
-            err = fn(
-                tiles.data_ptr(), window.data_ptr(), ys_d.data_ptr(), xs_d.data_ptr(), out.data_ptr(),
-                len(ys), len(xs), t, c, out_h, out_w, VARIANTS[variant], stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"blend kernel launch failed ({variant}): cudaError {err}")
-        self.launches += 1
-        self.launches_by_variant[variant] += 1
+        self.launch(device, variant, tiles.data_ptr(), window.data_ptr(), ys_d.data_ptr(), xs_d.data_ptr(),
+                    out.data_ptr(), len(ys), len(xs), t, c, out_h, out_w, VARIANTS[variant])
         return out
 
 

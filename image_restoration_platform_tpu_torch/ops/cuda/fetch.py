@@ -33,11 +33,9 @@ _fn = None
 
 def _bind():
     global _fn
-    if _fn is None:  # a second binding in a race is the same function
-        fn = build.load(SOURCE).irp_fetch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+    if _fn is None:
+        _fn = build.bind(SOURCE, "irp_fetch", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                                               ctypes.c_void_p])
     return _fn
 
 

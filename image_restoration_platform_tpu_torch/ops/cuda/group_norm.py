@@ -119,24 +119,13 @@ def _check_activation(x: torch.Tensor) -> tuple[int, int, int, int]:
     return n, h, w, c
 
 
-class MomentsKernel:
+class MomentsKernel(build.Kernel):
     """ctypes binding of ``irp_gn_moments`` with its launch count; the FiLM
     prologue is a variant of the same kernel."""
 
-    name = "gn_moments"
-
-    def __init__(self) -> None:
-        self.launches = 0
-        self.launches_by_variant = {"moments": 0, "film": 0}
-        self._fn = None
-
-    def _bind(self):
-        if self._fn is None:
-            fn = build.load(SOURCE).irp_gn_moments
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    name, variants = "gn_moments", ("moments", "film")
+    source, symbol = SOURCE, "irp_gn_moments"
+    argtypes = (*[ctypes.c_void_p] * 6, *[ctypes.c_int] * 7)
 
     def __call__(self, x: torch.Tensor, conv_bias: torch.Tensor | None = None,
                  gamma_beta: torch.Tensor | None = None):
@@ -152,41 +141,24 @@ class MomentsKernel:
             _check("conv_bias", conv_bias, x.dtype, (c,))
             _check("gamma_beta", gamma_beta, x.dtype, (n, 2 * c))
         splits, chunk, _ = moments_plan(n, h * w, c, x.dtype)
-        fn = self._bind()
         out = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
         partial = torch.empty((2, n, splits, c) if splits > 1 else (0,), dtype=torch.float32, device=x.device)
         y = torch.empty_like(x) if film else None
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        with torch.cuda.device(x.device):
-            err = fn(
-                x.data_ptr(), conv_bias.data_ptr() if film else None, gamma_beta.data_ptr() if film else None,
-                y.data_ptr() if film else None, partial.data_ptr() if splits > 1 else None, out.data_ptr(),
-                n, h * w, c, splits, chunk, DTYPE_CODE[x.dtype], int(film), stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"gn_moments launch failed ({tuple(x.shape)} {x.dtype}): cudaError {err}")
-        self.launches += 1
-        self.launches_by_variant["film" if film else "moments"] += 1
+        self.launch(
+            x.device, "film" if film else "moments",
+            x.data_ptr(), conv_bias.data_ptr() if film else None, gamma_beta.data_ptr() if film else None,
+            y.data_ptr() if film else None, partial.data_ptr() if splits > 1 else None, out.data_ptr(),
+            n, h * w, c, splits, chunk, DTYPE_CODE[x.dtype], int(film),
+        )
         return (y, out[0], out[1]) if film else (out[0], out[1])
 
 
-class AffineSiluKernel:
+class AffineSiluKernel(build.Kernel):
     """ctypes binding of ``irp_gn_affine_silu`` with its launch count."""
 
-    name = "gn_affine_silu"
-
-    def __init__(self) -> None:
-        self.launches = 0
-        self.launches_by_variant = {"silu": 0, "affine": 0}
-        self._fn = None
-
-    def _bind(self):
-        if self._fn is None:
-            fn = build.load(SOURCE).irp_gn_affine_silu
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    name, variants = "gn_affine_silu", ("silu", "affine")
+    source, symbol = SOURCE, "irp_gn_affine_silu"
+    argtypes = (*[ctypes.c_void_p] * 4, *[ctypes.c_int] * 6)
 
     def __call__(self, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, silu: bool = True) -> torch.Tensor:
         """silu(cast(x * scale + bias)) of NHWC x with [N, C] f32 scale and
@@ -198,16 +170,9 @@ class AffineSiluKernel:
         _check("bias", bias, torch.float32, (n, c), rows=True)
         if scale.stride() != bias.stride():
             raise ValueError(f"scale and bias strides differ: {scale.stride()} and {bias.stride()}")
-        fn = self._bind()
         out = torch.empty_like(x)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n, h * w, c, scale.stride(0),
-                     DTYPE_CODE[x.dtype], int(silu), stream)
-        if err != 0:
-            raise RuntimeError(f"gn_affine_silu launch failed ({tuple(x.shape)} {x.dtype}): cudaError {err}")
-        self.launches += 1
-        self.launches_by_variant["silu" if silu else "affine"] += 1
+        self.launch(x.device, "silu" if silu else "affine", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                    out.data_ptr(), n, h * w, c, scale.stride(0), DTYPE_CODE[x.dtype], int(silu))
         return out
 
 

@@ -92,23 +92,12 @@ def add_norm_from_windows_reference(x: torch.Tensor, p: torch.Tensor, weight: to
 # ------------------------------------------------------------------ kernel
 
 
-class SwinAddNormKernel:
+class SwinAddNormKernel(build.Kernel):
     """ctypes binding of ``irp_swin_add_norm`` with its launch count."""
 
-    name = "swin_add_norm"
-
-    def __init__(self) -> None:
-        self.launches = 0
-        self.launches_by_variant = {"to_windows": 0, "from_windows": 0}
-        self._fn = None
-
-    def _bind(self):
-        if self._fn is None:
-            fn = build.load(SOURCE).irp_swin_add_norm
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    name, variants = "swin_add_norm", ("to_windows", "from_windows")
+    source, symbol = SOURCE, "irp_swin_add_norm"
+    argtypes = (*[ctypes.c_void_p] * 6, *[ctypes.c_int] * 6, ctypes.c_float)
 
     def __call__(self, variant: str, x: torch.Tensor, a: torch.Tensor | None, weight: torch.Tensor,
                  bias: torch.Tensor, eps: float, shift: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -144,18 +133,11 @@ class SwinAddNormKernel:
         if not all(t.is_contiguous() for t in tensors) or any(t.data_ptr() % 16 for t in (x, a) if t is not None) \
                 or any(t.data_ptr() % 4 for t in (weight, bias)):
             raise ValueError("the add-norm kernel takes contiguous tensors, x and the operand 16-byte aligned")
-        fn = self._bind()
         s = torch.empty_like(x) if a is not None else x
         y = torch.empty((windows, KERNEL_WINDOW**2, c) if to_windows else (b, h, w, c), dtype=x.dtype, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), a.data_ptr() if a is not None else None, weight.data_ptr(), bias.data_ptr(),
-                     s.data_ptr() if a is not None else None, y.data_ptr(), int(to_windows), windows, c, gh, gw,
-                     shift, float(eps), stream)
-        if err != 0:
-            raise RuntimeError(f"add-norm launch failed: cudaError {err}")
-        self.launches += 1
-        self.launches_by_variant[variant] += 1
+        self.launch(x.device, variant, x.data_ptr(), a.data_ptr() if a is not None else None, weight.data_ptr(),
+                    bias.data_ptr(), s.data_ptr() if a is not None else None, y.data_ptr(), int(to_windows), windows,
+                    c, gh, gw, shift, float(eps))
         return s, y
 
 

@@ -97,23 +97,12 @@ def window_attention_reference(qkv: torch.Tensor, table: torch.Tensor, heads: in
 # ------------------------------------------------------------------ kernel
 
 
-class WindowAttentionKernel:
+class WindowAttentionKernel(build.Kernel):
     """ctypes binding of ``irp_window_attention`` with its launch count."""
 
-    name = "window_attention"
-
-    def __init__(self) -> None:
-        self.launches = 0
-        self.launches_by_variant = {"window": 0, "shifted": 0}
-        self._fn = None
-
-    def _bind(self):
-        if self._fn is None:
-            fn = build.load(SOURCE).irp_window_attention
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    name, variants = "window_attention", ("window", "shifted")
+    source, symbol = SOURCE, "irp_window_attention"
+    argtypes = (*[ctypes.c_void_p] * 3, *[ctypes.c_int] * 6, ctypes.c_float)
 
     def __call__(self, qkv: torch.Tensor, table: torch.Tensor, heads: int, shift: int,
                  grid: tuple[int, int]) -> torch.Tensor:
@@ -137,16 +126,9 @@ class WindowAttentionKernel:
             raise ValueError(f"shift {shift} is outside [0, {KERNEL_WINDOW})")
         if not (qkv.is_contiguous() and table.is_contiguous()) or qkv.data_ptr() % 16:
             raise ValueError("the window attention kernel takes a contiguous, 16-byte aligned qkv and table")
-        fn = self._bind()
         out = torch.empty((n, t, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        with torch.cuda.device(qkv.device):
-            err = fn(qkv.data_ptr(), table.data_ptr(), out.data_ptr(), n, heads, head_dim, gh, gw, shift,
-                     head_dim**-0.5, stream)
-        if err != 0:
-            raise RuntimeError(f"window attention launch failed: cudaError {err}")
-        self.launches += 1
-        self.launches_by_variant["shifted" if shift else "window"] += 1
+        self.launch(qkv.device, "shifted" if shift else "window", qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
+                    n, heads, head_dim, gh, gw, shift, head_dim**-0.5)
         return out
 
 

@@ -44,6 +44,7 @@ import torch
 from ..eval import gates as G
 from ..eval import ood, quality
 from ..eval.common import load_model
+from ..models import get_family
 from ..serve.engine import resolve_device
 from ..train.realphoto import available_sources
 
@@ -120,7 +121,7 @@ def _flatten_family(report, fam):
     metrics = {}
     entry = report["families"].get(fam, {})
     for dist, row in entry.items():
-        if fam.startswith("sr-"):
+        if get_family(fam).kind == "sr":
             for mode, sub in row.items():
                 metrics[f"{dist}/{mode}"] = sub["gain_db"]
         else:

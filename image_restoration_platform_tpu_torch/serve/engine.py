@@ -32,8 +32,8 @@ unfolded weights: its halo exchange is defined on them.
 
 The engine runs on ``device="cuda"`` (or its mesh's slots) unless the caller
 asks for the CPU; it never falls back to the CPU by itself, and loading a
-family on a card first checks the attention shapes it will launch
-(``models.registry.check_attention_shapes``).
+family on a card first checks the shapes its hand-written kernels will take
+(``ModelFamily.check_kernel_shapes``).
 
 Every single-device surface goes through the executable tier
 (serve/exec_cache.py), as the reference's ``_aot_executable`` does: one
@@ -73,11 +73,9 @@ import numpy as np
 import torch
 
 from ..config import ServingConfig
-from ..models import ParamCache, get_family, is_sr_family
+from ..models import ParamCache, get_family
 from ..models.folded import folded_model
 from ..models.nn import cast_for_compute
-from ..models.registry import check_attention_shapes
-from ..models.srnet import SRNetConfig
 from ..obs.metrics import get_counters
 from ..obs.tracing import device_trace, get_tracer
 from ..ops.cuda.fetch import fetch
@@ -85,6 +83,7 @@ from ..parallel.mesh import AXIS_DATA, AXIS_SPATIAL, capture_plan
 from ..parallel.sharding import replicate, shard_params
 from ..utils.logging import get_logger
 from .exec_cache import EagerExecutable, ExecCache, GraphExecutable, MeshExecutable, capture_stream, exec_key
+from .programs import sr as sr_programs
 from .programs.restore import STAGE_FIRES
 
 
@@ -98,30 +97,16 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
-FOLDED_UNETS = ("restore-unet", "restore-unet-small", "diffusion-restore")
-
-
 def uses_folded(family_name: str, config: ServingConfig) -> bool:
     """Whether an engine of ``config`` serves ``family_name`` in the W-folded
-    layout (models/folded.py): the SR families that have one (SRNet) under
-    ``fold_w_sr``, the restore UNets under ``fold_w``."""
-    if is_sr_family(family_name):
-        return config.fold_w_sr and isinstance(get_family(family_name).config, SRNetConfig)
-    return config.fold_w and family_name in FOLDED_UNETS
+    layout (models/folded.py; ``ModelFamily.uses_folded``)."""
+    return get_family(family_name).uses_folded(config)
 
 
 def uses_s2d_io(family_name: str, config: ServingConfig) -> bool:
     """Whether an engine of ``config`` serves ``family_name`` with
-    space-to-depth IO (the unfolded s2d-stem UNets with RGB in and out; the
-    folded layout has its own)."""
-    if not config.s2d_io or uses_folded(family_name, config):
-        return False
-    cfg = get_family(family_name).config
-    return (
-        getattr(cfg, "input_scale", 1) > 1
-        and getattr(cfg, "in_channels", 0) == getattr(cfg, "out_channels", -1)
-        and not getattr(cfg, "time_conditioned", False)
-    )
+    space-to-depth IO (``ModelFamily.uses_s2d_io``)."""
+    return get_family(family_name).uses_s2d_io(config)
 
 
 def _pack(tensors) -> torch.Tensor:
@@ -272,7 +257,7 @@ class RestorationEngine:
             if (family_name, folded) not in self._models:
                 family = get_family(family_name)
                 if self.device.type == "cuda":
-                    check_attention_shapes(family_name, self.config.size_buckets, self.config.max_batch, self.dtype)
+                    family.check_kernel_shapes(self.config.size_buckets, self.config.max_batch, self.dtype)
                 state = self.params_cache.get(family_name)
                 if folded:
                     m = folded_model(family.config, state)
@@ -450,14 +435,15 @@ class RestorationEngine:
             valid_hw = np.concatenate([valid_hw, np.repeat(valid_hw[-1:], pad, axis=0)], axis=0)
             is_jpeg_f = np.concatenate([is_jpeg_f, np.repeat(is_jpeg_f[-1:], pad, axis=0)], axis=0)
 
-        if family_name == "diffusion-restore":
+        diffusion = get_family(family_name).kind == "diffusion"
+        if diffusion:
             egress = "rgb"  # the diffusion program has no plane egress
         model = self.model(family_name)
         program = self._program(family_name, egress)
         # batches by family kind and size: the counts a run holds kernel
         # launches to (one UNet forward per restore batch, sample_steps per
         # diffusion batch)
-        kind = "diffusion_batches" if family_name == "diffusion-restore" else "restore_batches"
+        kind = "diffusion_batches" if diffusion else "restore_batches"
         get_counters().inc(f"{kind}.{canvas_u8.shape[1]}")
         trace_label = f"restore/{family_name}/{canvas_u8.shape[1]}x{canvas_u8.shape[2]}b{bucket}"
         call = self._tracer.start_span("engine.call", {"engine.program": trace_label,
@@ -465,7 +451,7 @@ class RestorationEngine:
         t0 = time.perf_counter()
         with device_trace(trace_label):
             args = (_host(canvas_u8), torch.from_numpy(valid_hw), torch.from_numpy(is_jpeg_f))
-            if family_name == "diffusion-restore":
+            if diffusion:
                 with self._rng_lock:  # drawn outside any graph, copied into its static input
                     noise = torch.randn(
                         tuple(args[0].shape), generator=self._generator, device=self.device, dtype=self.dtype
@@ -511,9 +497,6 @@ class RestorationEngine:
         return fetch
 
     # ------------------------------------------- fusion, super-resolution
-
-    SR_TILE_THRESHOLD = 512  # mirror of RestoratorService.SR_TILE_THRESHOLD
-    SR_TILED_CANVAS = 2048  # the documented 2K -> 4K bucket
 
     def _run_sync(self, label: str, run, family_name: str, **extra):
         """Run a device program under the run lock, fetch its outputs in one
@@ -659,9 +642,9 @@ class RestorationEngine:
         self,
         canvas_u8: np.ndarray,
         family_name: str = "sr-x2",
-        tile: int = 256,
-        overlap: int = 32,
-        tile_batch: int = 8,
+        tile: int = sr_programs.TILE,
+        overlap: int = sr_programs.OVERLAP,
+        tile_batch: int = sr_programs.TILE_BATCH,
         output: str = "rgb",
     ) -> tuple[np.ndarray, dict]:
         """Tiled super-resolution of one [H,W,3] u8 canvas with seam-free
@@ -716,7 +699,7 @@ class RestorationEngine:
         exchange is defined on convolutions."""
         from .programs import build_sr_spatial_program
 
-        if not isinstance(get_family(family_name).config, SRNetConfig):
+        if not get_family(family_name).row_shards:
             raise ValueError(f"sr_spatial row-shards SRNet families only; model family {family_name!r} "
                              "has no row-sharded form (its halo exchange covers convolutions only)")
         if self.mesh is None or self.mesh.shape[AXIS_SPATIAL] <= 1:

@@ -19,12 +19,10 @@ branch, replayed with the host reading the stage flags between them:
   arrays) exist before capture; one capture per segment and branch, each
   writing its results into static buffers that both branches share; replay.
   A capture launches no kernel, so the launch counts of the hand-written
-  kernels (``FlashKernel.launches``, ``BlendKernel.launches``, the fused
-  GroupNorm's ``MomentsKernel.launches`` and ``AffineSiluKernel.launches``,
-  ``WindowAttentionKernel.launches``, ``SwinAddNormKernel.launches``,
-  counted in Python where they launch)
-  are set back after it, and every replay adds the launches its graph holds,
-  and publishes them as the counter ``kernels.launches.<kernel name>``;
+  kernels (each binding's ``launches`` in ``obs.metrics.KERNELS``, counted
+  in Python where it launches) are set back after it, and every replay
+  adds the launches its graph holds, and publishes them as the counter
+  ``kernels.launches.<kernel name>``;
 - ``EagerExecutable``: the segments run eagerly under the same key. It is
   the executable on the CPU, where nothing is captured (so the key, the
   single-flight gate and the branch selection are all exercised there); on
@@ -58,7 +56,7 @@ import threading
 
 import torch
 
-from ..obs.metrics import get_counters
+from ..obs.metrics import KERNELS, get_counters
 from ..parallel.sharding import gather
 from .programs.segments import Program, decide
 
@@ -118,30 +116,21 @@ class ExecCache:
         return {"executables": built, "graphs": self.count("graph_count")}
 
 
-def _kernels() -> tuple:
-    from ..ops.cuda.attention import flash_kernel
-    from ..ops.cuda.blend import blend_kernel
-    from ..ops.cuda.group_norm import affine_silu_kernel, moments_kernel
-    from ..ops.cuda.swin_add_norm import swin_add_norm_kernel
-    from ..ops.cuda.window_attention import window_attention_kernel
-
-    return (flash_kernel, blend_kernel, moments_kernel, affine_silu_kernel, window_attention_kernel,
-            swin_add_norm_kernel)
-
-
 class LaunchDelta:
     """The hand-written kernels' launches one capture recorded. Opened before
     the capture; ``close()`` after it takes the delta and sets the counts
-    back (a capture launches nothing); ``replay()`` adds the delta, the
-    launches a replay of the graph makes, to each kernel's count and to the
-    program counter ``kernels.launches.<kernel name>`` (obs/metrics.py)."""
+    back (a capture launches nothing; a kernel first registered after the
+    opening counts from 0); ``replay()`` adds the delta, the launches a
+    replay of the graph makes, to each kernel's count and to the program
+    counter ``kernels.launches.<kernel name>`` (obs/metrics.py)."""
 
     def __init__(self) -> None:
-        self._before = [(k, k.launches, dict(k.launches_by_variant)) for k in _kernels()]
+        self._before = {k: (k.launches, dict(k.launches_by_variant)) for k in KERNELS}
         self.delta: list = []
 
     def close(self) -> LaunchDelta:
-        for kernel, launches, by_variant in self._before:
+        for kernel in KERNELS:
+            launches, by_variant = self._before.get(kernel, (0, {}))
             added = {v: n - by_variant.get(v, 0) for v, n in kernel.launches_by_variant.items()}
             if kernel.launches != launches:
                 self.delta.append((kernel, kernel.launches - launches, {v: n for v, n in added.items() if n}))

@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ...classify.fused import batch_classify_and_condition
-from ...models import diffusion, get_family, is_sr_family
+from ...models import diffusion, get_family
 from ...models import nn as mnn
 from ...models.folded import is_folded
 from ...ops import deblock, deblur
@@ -163,9 +163,10 @@ def build_restore_program(
         raise ValueError(f"unknown egress {egress!r}")
     if use_folded and use_s2d_io:
         raise ValueError("a folded model has no space-to-depth IO")
-    cfg = get_family(family_name).config
+    family = get_family(family_name)
+    cfg = family.config
 
-    if is_sr_family(family_name):
+    if family.kind == "sr":
 
         def sr_pieces(model, shapes):
             check_layout(model, use_folded)
@@ -181,7 +182,7 @@ def build_restore_program(
     def result(outs):
         return (outs[0] if len(outs) == 3 else tuple(outs[:3])), outs[-2]
 
-    if family_name == "diffusion-restore":
+    if family.kind == "diffusion":
 
         def diffusion_pieces(model, shapes):
             check_layout(model, use_folded)

@@ -15,6 +15,14 @@ Counterpart of image_restoration_platform_tpu/serve/programs/sr.py:
 
 Each is a ``Program`` of one segment (serve/programs/segments.py), so the
 engine's executable tier captures it whole where its slots are one device.
+
+The SR routes' sizes are defined here and nowhere else: the restorator sends
+a canvas above ``DIRECT_MAX`` to the tiled program (or the row-sharded one)
+and adds the ``TILED_CANVAS`` bucket, ``warmup_serving`` warms both routes,
+and ``engine.sr_tiled`` tiles at ``TILE`` with ``OVERLAP`` in chunks of
+``TILE_BATCH`` by default. They equal the benchmark configurations'
+``direct_max``, ``tiled_canvas``, ``tile``, ``overlap`` and ``tile_batch``:
+a graph of other sizes would be built inside a timed window.
 """
 
 from __future__ import annotations
@@ -29,6 +37,10 @@ from ...parallel.sharding import gather, split_batch
 from .egress import to_yuv420
 from .restore import PLANES, check_layout
 from .segments import Piece, Program
+
+DIRECT_MAX = 512  # the largest bucket the family's network takes whole
+TILED_CANVAS = 2048  # the 2K -> 4K bucket
+TILE, OVERLAP, TILE_BATCH = 256, 32, 8
 
 
 def _emit(out: torch.Tensor, output: str):

@@ -30,7 +30,7 @@ import numpy as np
 from .. import imageio
 from ..classify.classifier import DEGRADATION_ORDER, ClassifierService
 from ..config import ServingConfig
-from ..models import SRNetConfig, get_family, is_sr_family
+from ..models import get_family
 from ..obs.metrics import get_counters
 from ..obs.tracing import get_tracer
 from ..ops.resize import fit_inside
@@ -38,6 +38,7 @@ from ..parallel.mesh import AXIS_SPATIAL
 from ..prompt import PromptEnhancerService
 from ..utils.logging import get_logger
 from .engine import RestorationEngine, resolve_device
+from .programs import sr as sr_programs
 
 def _classify_error(error: Exception) -> str:
     message = str(error).lower()
@@ -191,7 +192,8 @@ class RestoratorService:
                 if pixels is None:
                     with self._tracer.span("restorator.decode"):
                         pixels, fmt = self._decode(image, options)
-                if is_sr_family(family):
+                kind = get_family(family).kind
+                if kind == "sr":
                     return self._restore_sr(pixels, fmt, family, timings, start, span)
 
                 # classification, conditioning and restoration run as one
@@ -207,7 +209,7 @@ class RestoratorService:
                     "yuv420"
                     if (
                         self.config.restore_egress == "yuv420"
-                        and family != "diffusion-restore"
+                        and kind != "diffusion"
                         and (sh, sw) == pixels.shape[:2]
                         and imageio.native_available()
                     )
@@ -322,8 +324,6 @@ class RestoratorService:
 
     # -------------------------------------------------- super-resolution
 
-    SR_TILE_THRESHOLD = 512  # above this bucket, tile + overlap-blend
-
     def _spatial_shards(self) -> int:
         mesh = self.engine.mesh
         return 1 if mesh is None else int(mesh.shape[AXIS_SPATIAL])
@@ -332,16 +332,15 @@ class RestoratorService:
         """Super-resolution: the family's network direct for small inputs;
         for large ones the row-sharded program on a mesh with a spatial axis
         (SRNet families), else tiled overlap-blend."""
-        cfg = get_family(family).config
-        scale = cfg.scale
+        scale = get_family(family).config.scale
         h, w = pixels.shape[:2]
         t = time.perf_counter()
         with self._tracer.span("restorator.canvas"):
             canvas, (sh, sw), bucket = self._canonicalize_sr(pixels)
-        if bucket <= self.SR_TILE_THRESHOLD:
+        if bucket <= sr_programs.DIRECT_MAX:
             out_batch, engine_meta = self.engine.sr_batch(canvas[None], family)
             out_canvas = out_batch[0]
-        elif self._spatial_shards() > 1 and isinstance(cfg, SRNetConfig):
+        elif self._spatial_shards() > 1 and get_family(family).row_shards:
             # one canvas row-sharded over the spatial slots, a one-row halo
             # exchanged at every convolution
             out_canvas, engine_meta = self.engine.sr_spatial(canvas, family)
@@ -396,10 +395,10 @@ class RestoratorService:
         }
 
     def _canonicalize_sr(self, img: np.ndarray) -> tuple[np.ndarray, tuple[int, int], int]:
-        """SR canonicalization allows a 2048 bucket on top of the serving
-        buckets (2K input -> 4K output)."""
+        """SR canonicalization allows the tiled canvas's bucket on top of the
+        serving buckets (2K input -> 4K output)."""
         h, w = img.shape[:2]
-        buckets = tuple(sorted(set(self.config.size_buckets) | {2048}))
+        buckets = tuple(sorted(set(self.config.size_buckets) | {sr_programs.TILED_CANVAS}))
         longest = max(h, w)
         bucket = next((b for b in buckets if longest <= b), buckets[-1])
         sw, sh = fit_inside(w, h, bucket)

@@ -27,7 +27,8 @@ import time
 
 import numpy as np
 
-from ..models import SRNetConfig, get_family, is_sr_family
+from ..models import get_family
+from .programs import sr as sr_programs
 
 
 def _batch_buckets(max_batch: int) -> tuple[int, ...]:
@@ -54,7 +55,7 @@ def _restore_egresses(engine, family_name: str) -> tuple[str, ...]:
     (serve/restorator.py)."""
     from .. import imageio
 
-    if (family_name != "diffusion-restore" and engine.config.restore_egress == "yuv420"
+    if (get_family(family_name).kind != "diffusion" and engine.config.restore_egress == "yuv420"
             and imageio.native_available()):
         return ("rgb", "yuv420")
     return ("rgb",)
@@ -91,8 +92,8 @@ def warmup_serving(
 ) -> dict:
     """Warm EVERY surface ``families`` names; returns {surface: seconds}.
 
-    SR families warm the direct path at buckets <= SR_TILE_THRESHOLD plus
-    the tiled canvas — the routes _restore_sr actually takes
+    SR families warm the direct path at buckets <= ``DIRECT_MAX`` plus the
+    tiled canvas (serve/programs/sr.py) — the routes _restore_sr actually takes
     (serve/restorator.py)."""
     sizes = _largest_first(sizes or engine.config.size_buckets)
     batches = _largest_first(batches or _batch_buckets(engine.config.max_batch))
@@ -114,21 +115,21 @@ def warmup_serving(
                         f"fusion/k{k}/{size}",
                         lambda c=canvas, v=vhw, j=jf: engine.fuse_batch(c, v, j),
                     )
-        elif is_sr_family(fam):
+        elif get_family(fam).kind == "sr":
             for size in sizes:
-                if size <= engine.SR_TILE_THRESHOLD:
+                if size <= sr_programs.DIRECT_MAX:
                     img = np.zeros((1, size, size, 3), dtype=np.uint8)
                     timed(f"{fam}/direct/{size}", lambda i=img, f=fam: engine.sr_batch(i, f))
-            tc = sr_tiled_canvas or engine.SR_TILED_CANVAS
-            if _spatial_mesh(engine) and isinstance(get_family(fam).config, SRNetConfig):
+            tc = sr_tiled_canvas or sr_programs.TILED_CANVAS
+            if _spatial_mesh(engine) and get_family(fam).row_shards:
                 # on a spatial mesh the restorator row-shards every canvas
                 # above the direct threshold (restorator._restore_sr)
-                for size in _largest_first({s for s in sizes if s > engine.SR_TILE_THRESHOLD} | {tc}):
+                for size in _largest_first({s for s in sizes if s > sr_programs.DIRECT_MAX} | {tc}):
                     canvas = np.zeros((size, size, 3), dtype=np.uint8)
                     timed(f"{fam}/spatial/{size}", lambda c=canvas, f=fam: engine.sr_spatial(c, f))
                 continue
             canvas = np.zeros((tc, tc, 3), dtype=np.uint8)
-            tile = min(256, tc)  # clamp for small test canvases
+            tile = min(sr_programs.TILE, tc)  # clamp for small test canvases
             # yuv420 planes egress is what the serving path takes for huge
             # canvases (restorator._restore_sr); rgb is the fallback when a
             # host resize follows — warm both programs

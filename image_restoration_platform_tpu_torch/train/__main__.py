@@ -49,10 +49,10 @@ def evaluate(state, family_name, seed, n=16, size=128, photo=False, device="cuda
     model = _serving_model(family_name, state, device)
     gen = torch.Generator(device=device).manual_seed(seed)
     degraded, clean, cond = synthetic_batch(gen, n, DataConfig(size=size, photo=photo))
-    if family_name == "diffusion-restore":
+    if family.kind == "diffusion":
         restored = diff_mod.restore(model, degraded, cond, gen, family.config)
         return psnr(degraded, clean), psnr(restored, clean)
-    if family_name.startswith("sr-"):
+    if family.kind == "sr":
         scale = family.config.scale
         b, h, w, c = degraded.shape
         lr = degraded.reshape(b, h // scale, scale, w // scale, scale, c).mean(dim=(2, 4))

@@ -70,9 +70,8 @@ from torch.utils.checkpoint import checkpoint
 from ..models import diffusion as diff_mod
 from ..models import get_family
 from ..models import weights as weights_mod
-from ..models.diffusion import DiffusionConfig
 from ..models.registry import check_attention_shapes
-from ..models.srnet import SRNet, SRNetConfig
+from ..models.srnet import SRNet
 from ..parallel.mesh import AXIS_DATA, capture_plan, process_group_backend, process_span
 from ..parallel.sharding import accumulate_grads_, scatter_state_, shard_params
 from ..serve.engine import resolve_device
@@ -254,8 +253,11 @@ class TrainStep:
         family = get_family(cfg.family)
         self.family = family
         self.model_cfg = family.config
-        self.is_sr = isinstance(self.model_cfg, SRNetConfig)
-        self.is_diffusion = isinstance(self.model_cfg, DiffusionConfig)
+        if not family.trainable:
+            raise ValueError(f"the trainer has no loss for model family {cfg.family!r}: it trains the restore "
+                             "UNets, the diffusion UNet and SRNet")
+        self.is_sr = family.kind == "sr"
+        self.is_diffusion = family.kind == "diffusion"
         self.schedule = lr_schedule(cfg)
         self.noise_gen = torch.Generator(device=device)
 

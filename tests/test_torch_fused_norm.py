@@ -24,6 +24,7 @@ The ``cuda``-marked tests hold each kernel against its plain version on the
 card (``pytest -m cuda --noconftest``: the card's machine has no JAX, so the
 CPU tests import it inside)."""
 
+import importlib
 import importlib.util
 import math
 import os
@@ -398,6 +399,53 @@ def test_launch_delta_carries_the_fused_norm_kernels():
     assert G.moments_kernel.launches == before[0] + 3
     G.moments_kernel.launches -= 3
     G.moments_kernel.launches_by_variant["film"] -= 3
+
+
+KERNEL_MODULES = {"flash_attention": ("attention", "flash_kernel"), "blend_tiles": ("blend", "blend_kernel"),
+                  "gn_moments": ("group_norm", "moments_kernel"), "gn_affine_silu": ("group_norm", "affine_silu_kernel"),
+                  "window_attention": ("window_attention", "window_attention_kernel"),
+                  "swin_add_norm": ("swin_add_norm", "swin_add_norm_kernel")}
+
+
+@pytest.mark.parametrize("name", list(KERNEL_MODULES))
+def test_every_kernel_binding_is_registered_under_its_counter_name(name):
+    """Each hand-written kernel's binding registers itself as it is made,
+    under the name of its counter ``kernels.launches.<name>``."""
+    from image_restoration_platform_tpu_torch.obs.metrics import KERNELS
+
+    module, attribute = KERNEL_MODULES[name]
+    kernel = getattr(importlib.import_module(f"image_restoration_platform_tpu_torch.ops.cuda.{module}"), attribute)
+    assert isinstance(kernel, build.Kernel) and kernel.name == name
+    assert [k for k in KERNELS if k.name == name] == [kernel]
+
+
+def test_launch_delta_carries_a_kernel_registered_after_it_opened():
+    """A binding first made while a capture is open (its module imported
+    then) counts from 0: the capture's launches are taken back and every
+    replay adds them."""
+    from image_restoration_platform_tpu_torch.obs import metrics
+    from image_restoration_platform_tpu_torch.serve.exec_cache import LaunchDelta
+
+    class ProbeKernel(build.Kernel):
+        name, variants = "probe", ("plain", "fused")
+        source, symbol, argtypes = "probe.cu", "irp_probe", ()
+
+    delta = LaunchDelta()
+    probe = ProbeKernel()
+    try:
+        assert metrics.KERNELS[-1] is probe
+        probe.launches += 3  # what a capture would have recorded
+        probe.launches_by_variant["fused"] += 3
+        delta.close()
+        assert (probe.launches, probe.launches_by_variant) == (0, {"plain": 0, "fused": 0})
+        published = metrics.get_counters().snapshot().get("kernels.launches.probe", 0.0)
+        delta.replay()
+        delta.replay()
+        assert (probe.launches, probe.launches_by_variant) == (6, {"plain": 0, "fused": 6})
+        assert metrics.get_counters().snapshot()["kernels.launches.probe"] - published == 6
+    finally:
+        metrics.KERNELS.remove(probe)
+    assert probe._fn is None  # nothing was bound or built
 
 
 # -------------------------------------------------------------- on the card

@@ -21,6 +21,7 @@ from image_restoration_platform_tpu_torch.models import get_family
 from image_restoration_platform_tpu_torch.obs.metrics import get_counters
 from image_restoration_platform_tpu_torch.parallel import make_mesh
 from image_restoration_platform_tpu_torch.serve import MicroBatcher, RestorationEngine, RestoratorService
+from image_restoration_platform_tpu_torch.serve.programs import sr as sr_programs
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -171,7 +172,7 @@ def test_restorator_routes_huge_canvas_to_spatial_mesh(monkeypatch):
     cfg = ServingConfig(size_buckets=(64, 128), max_batch=4)
     engine = RestorationEngine(serving_config=cfg, mesh=cpu_mesh(spatial=8))
     service = RestoratorService(engine=engine, serving_config=cfg, device="cpu")
-    monkeypatch.setattr(RestoratorService, "SR_TILE_THRESHOLD", 64)
+    monkeypatch.setattr(sr_programs, "DIRECT_MAX", 64)
     before = get_counters().snapshot()
     img = np.random.default_rng(7).integers(0, 256, (100, 100, 3), dtype=np.uint8)
     result = service.restore(imageio.encode_jpeg(img, quality=90), options={"model": "sr-x2"})

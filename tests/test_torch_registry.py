@@ -25,7 +25,11 @@ from image_restoration_platform_tpu_torch.models import (
     register,
     registry,
 )
+from image_restoration_platform_tpu_torch.eval.common import serving_forward
+from image_restoration_platform_tpu_torch.models.folded import folded_model
 from image_restoration_platform_tpu_torch.serve import RestorationEngine, RestoratorService
+from image_restoration_platform_tpu_torch.serve.engine import uses_folded, uses_s2d_io
+from image_restoration_platform_tpu_torch.serve.programs import build_restore_program
 
 torch.set_num_threads(2)
 
@@ -103,13 +107,13 @@ def test_registered_diffusion_family_through_restorator(diffusion_engine):
 
 @pytest.mark.parametrize("fold", [False, True], ids=["unfolded", "folded"])
 def test_registered_restore_and_sr_families_serve(scratch_registry, fold):
-    """New names: a restore UNet served through the restore program and an
-    SR family (``sr-`` prefix) through ``sr_batch``, folded under
-    ``fold_w_sr`` like the shipped SR families."""
+    """New names: a restore UNet served through the restore program, folded
+    under ``fold_w`` like the shipped restore UNets, and an SR family through
+    ``sr_batch``, folded under ``fold_w_sr`` like the shipped SR families."""
     register(ModelFamily("restore-narrow", UNetConfig(**NARROW)))
     register(ModelFamily("sr-narrow", SRNetConfig(scale=2, channels=16, num_blocks=2)))
     engine = RestorationEngine(device="cpu", serving_config=ServingConfig(size_buckets=(32,), max_batch=2,
-                                                                          fold_w_sr=fold))
+                                                                          fold_w=fold, fold_w_sr=fold))
     _put_random(engine.params_cache, "restore-narrow", 1)
     canvas = np.random.default_rng(0).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
     out, scores, _ = engine.restore_batch(canvas, family_name="restore-narrow")
@@ -117,3 +121,102 @@ def test_registered_restore_and_sr_families_serve(scratch_registry, fold):
     up, meta = engine.sr_batch(canvas, "sr-narrow")  # random weights from the cache's seed
     assert up.shape == (2, 64, 64, 3) and meta["family"] == "sr-narrow"
     assert getattr(engine.model("sr-narrow"), "folded", False) == fold
+    assert getattr(engine.model("restore-narrow"), "folded", False) == fold
+
+
+# What each shipped family is, as the serving path reads it: its kind, whether
+# models/folded.py has a W-folded layout of it and whether it row-shards, then
+# (uses_folded, uses_s2d_io) under each serving config of SERVING.
+SERVING = {"default": {}, "fold_w_sr": {"fold_w_sr": True}, "fold_w_off": {"fold_w": False}}
+ANSWERS = {
+    "restore-unet": ("restore", True, False, {"default": (True, False), "fold_w_sr": (True, False),
+                                              "fold_w_off": (False, True)}),
+    "restore-unet-small": ("restore", True, False, {"default": (True, False), "fold_w_sr": (True, False),
+                                                    "fold_w_off": (False, False)}),
+    "sr-x2": ("sr", True, True, {"default": (False, False), "fold_w_sr": (True, False),
+                                 "fold_w_off": (False, False)}),
+    "sr-x4": ("sr", True, True, {"default": (False, False), "fold_w_sr": (True, False),
+                                 "fold_w_off": (False, False)}),
+    "swinir-m-x2": ("sr", False, False, {"default": (False, False), "fold_w_sr": (False, False),
+                                         "fold_w_off": (False, False)}),
+    "diffusion-restore": ("diffusion", True, False, {"default": (True, False), "fold_w_sr": (True, False),
+                                                     "fold_w_off": (False, False)}),
+}
+
+
+def _kind(name: str) -> str:
+    """"sr" for a family the SR path takes, else "diffusion" where the
+    restore program draws sampler noise, else "restore"."""
+    if models.is_sr_family(name):
+        return "sr"
+    program = build_restore_program(name, dtype=torch.float32, use_s2d_io=False, use_deblur=False,
+                                    use_deblock=False)
+    return "diffusion" if "noise" in program.inputs else "restore"
+
+
+def _has_folded_layout(name: str) -> bool:
+    family = get_family(name)
+    try:
+        folded_model(family.config, family.build().state_dict())
+    except ValueError:
+        return False
+    return True
+
+
+def _row_shards(name: str) -> bool:
+    """Whether ``sr_spatial`` takes the family: on an engine with no mesh it
+    then refuses for want of a spatial axis, not for the family."""
+    engine = RestorationEngine(device="cpu", serving_config=ServingConfig(size_buckets=(32,), max_batch=1))
+    with pytest.raises(ValueError) as refused:
+        engine.sr_spatial(np.zeros((32, 32, 3), np.uint8), name)
+    return "spatial axis" in str(refused.value)
+
+
+OBSERVED = {
+    "kind": _kind,
+    "has_folded_layout": _has_folded_layout,
+    "row_shards": _row_shards,
+    **{f"uses_folded[{s}]": (lambda name, s=s: uses_folded(name, ServingConfig(**SERVING[s]))) for s in SERVING},
+    **{f"uses_s2d_io[{s}]": (lambda name, s=s: uses_s2d_io(name, ServingConfig(**SERVING[s]))) for s in SERVING},
+}
+
+
+def _expected(name: str, answer: str):
+    kind, folded_layout, row_shards, by_serving = ANSWERS[name]
+    if answer in ("kind", "has_folded_layout", "row_shards"):
+        return {"kind": kind, "has_folded_layout": folded_layout, "row_shards": row_shards}[answer]
+    which, serving = answer[:-1].split("[")
+    return by_serving[serving][("uses_folded", "uses_s2d_io").index(which)]
+
+
+@pytest.mark.parametrize("answer", list(OBSERVED))
+@pytest.mark.parametrize("name", list(ANSWERS))
+def test_shipped_family_answers(monkeypatch, name, answer):
+    """Each shipped family's kind, layouts and row-sharding, as the serving
+    path reads them, with no SERVE_* setting of the environment in the way."""
+    for key in ("SERVE_FOLD_W", "SERVE_FOLD_W_SR", "SERVE_S2D_IO"):
+        monkeypatch.delenv(key, raising=False)
+    assert OBSERVED[answer](name) == _expected(name, answer)
+
+
+@pytest.mark.parametrize("name", ["sr-x2", "swinir-m-x2", "diffusion-restore"])
+def test_serving_forward_refuses_what_is_no_restore_unet(name):
+    with pytest.raises(ValueError, match=f"restore UNet families, not {name}"):
+        serving_forward(name, None, np.zeros((1, 32, 32, 3), np.float32))
+
+
+def test_a_diffusion_family_under_another_name_runs_the_diffusion_program(scratch_registry):
+    """The engine takes a diffusion family by its config, not its name: it
+    draws the sampler's noise and counts a diffusion batch."""
+    from image_restoration_platform_tpu_torch.obs.metrics import get_counters
+
+    cfg = DiffusionConfig(sample_steps=2, strength=0.3, unet=UNetConfig(in_channels=6, time_conditioned=True, **NARROW))
+    register(ModelFamily("denoise-narrow", cfg))
+    engine = RestorationEngine(device="cpu", serving_config=ServingConfig(size_buckets=(32,), max_batch=2))
+    _put_random(engine.params_cache, "denoise-narrow", 0)
+    before = get_counters().snapshot().get("diffusion_batches.32", 0.0)
+    canvas = np.full((1, 32, 32, 3), 128, dtype=np.uint8)
+    out, scores, meta = engine.restore_batch(canvas, family_name="denoise-narrow")
+    assert out.shape == (1, 32, 32, 3) and scores.shape == (1, 7) and meta["family"] == "denoise-narrow"
+    assert get_counters().snapshot()["diffusion_batches.32"] - before == 1
+    assert "noise" in engine._program("denoise-narrow", "rgb").inputs

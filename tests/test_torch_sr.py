@@ -28,6 +28,7 @@ from image_restoration_platform_tpu_torch.obs.metrics import get_counters
 from image_restoration_platform_tpu_torch.ops.cuda.blend import blend_kernel
 from image_restoration_platform_tpu_torch.serve import RestorationEngine, RestoratorService
 from image_restoration_platform_tpu_torch.serve.programs import build_restore_program, build_sr_tiled_program
+from image_restoration_platform_tpu_torch.serve.programs import sr as sr_programs
 from torch_reference_codec import build_reference_codec
 
 build_reference_codec()  # before any xdist worker loads the reference's codec (see the helper)
@@ -189,7 +190,7 @@ def test_restorator_sr_contract_matches_reference(services):
 
 @pytest.mark.parametrize("native", [True, False], ids=["native-codec", "pillow-codec"])
 def test_restorator_tiles_above_the_threshold(services, monkeypatch, native):
-    """Above SR_TILE_THRESHOLD the request goes through ``sr_tiled``: plane
+    """Above ``DIRECT_MAX`` the request goes through ``sr_tiled``: plane
     egress where the native codec takes planes and no host resize follows,
     RGB otherwise."""
     _, svc = services
@@ -197,7 +198,7 @@ def test_restorator_tiles_above_the_threshold(services, monkeypatch, native):
         pytest.skip("the native codec did not build here")
     if not native:
         monkeypatch.setattr(imageio, "native_available", lambda: False)
-    monkeypatch.setattr(svc, "SR_TILE_THRESHOLD", 32)
+    monkeypatch.setattr(sr_programs, "DIRECT_MAX", 32)
     outputs = []
     sr_tiled = svc.engine.sr_tiled
     monkeypatch.setattr(svc.engine, "sr_tiled",

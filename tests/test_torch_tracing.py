@@ -69,9 +69,9 @@ def service(monkeypatch):
     size)."""
     from image_restoration_platform_tpu_torch.api.context import AppContext
     from image_restoration_platform_tpu_torch.serve.moderation import ModerationService
-    from image_restoration_platform_tpu_torch.serve.restorator import RestoratorService
+    from image_restoration_platform_tpu_torch.serve.programs import sr as sr_programs
 
-    monkeypatch.setattr(RestoratorService, "SR_TILE_THRESHOLD", 128)
+    monkeypatch.setattr(sr_programs, "DIRECT_MAX", 128)
     ctx = AppContext(device="cpu", use_batcher=False, queue_workers=1)
     ctx.moderation = ModerationService(vision_client=lambda data: dict(CLEAR), audit_log=ctx.moderation.audit)
     ctx.user_store.grant("u", 10)

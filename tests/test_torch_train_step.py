@@ -33,3 +33,10 @@ def test_schedule_and_branch_dispatch():
     assert set(state.model.state_dict()) == set(treg.get_family("sr-x2-narrow").build().state_dict())
     assert ts.is_sr and not ts.is_diffusion
     assert T.make_train_step(train_config("sampler_aware", T), "cpu")[0].is_diffusion
+
+
+def test_a_family_the_trainer_has_no_loss_for_is_refused_by_name():
+    """SwinIR has no training branch: building its step refuses it, naming
+    it, before any model is built."""
+    with pytest.raises(ValueError, match="swinir-m-x2"):
+        T.make_train_step(T.TrainConfig(family="swinir-m-x2"), "cpu")
