@@ -312,6 +312,10 @@ WINDOW_ATTENTION_FAMILY, WINDOW_ATTENTION_CANVAS = "swinir-m-x2", 2048
 # the 2048 call: two a Swin layer and chunk
 SWIN_ADD_NORM_SHAPE = (8, 256, 256, 180)
 SWIN_ADD_NORM_FORMS = ("to_windows", "to_windows_no_add", "from_windows")
+# the Swin layer's MLP (ops/cuda/swin_mlp.py) at the same chunk: [8 x 256 x
+# 256 tokens, 180] -> 360 -> 180 bf16. Its launches in the 2048 call: one a
+# Swin layer and chunk
+SWIN_MLP_SHAPE = (8 * 256 * 256, 180, 360)
 
 # the blend: (canvas h x w, tile, overlap, scale, where the path uses it);
 # tiles of T*scale land at scaled origins, as ops/tile.py tiled_apply calls it
@@ -671,6 +675,7 @@ def phase_window_attention(torch, report):
     from image_restoration_platform_tpu_torch.ops.cuda import attention as A
     from image_restoration_platform_tpu_torch.ops.cuda import window_attention as W
     from image_restoration_platform_tpu_torch.ops.cuda.swin_add_norm import swin_add_norm_kernel
+    from image_restoration_platform_tpu_torch.ops.cuda.swin_mlp import swin_mlp_kernel
     from image_restoration_platform_tpu_torch.serve import RestorationEngine
     from image_restoration_platform_tpu_torch.utils.peaks import HBM_BYTES_PER_S
 
@@ -720,16 +725,19 @@ def phase_window_attention(torch, report):
     torch.cuda.reset_peak_memory_stats()
     before = W.window_attention_kernel.launches
     before_norm = swin_add_norm_kernel.launches
+    before_mlp = swin_mlp_kernel.launches
     t = time.perf_counter()
     engine.sr_tiled(canvas, WINDOW_ATTENTION_FAMILY)
     call = {"family": WINDOW_ATTENTION_FAMILY, "canvas": WINDOW_ATTENTION_CANVAS,
             "launches": W.window_attention_kernel.launches - before, "wall_ms": 1e3 * (time.perf_counter() - t),
             "swin_add_norm_launches": swin_add_norm_kernel.launches - before_norm,
+            "swin_mlp_launches": swin_mlp_kernel.launches - before_mlp,
             "memory_peak_bytes": torch.cuda.max_memory_allocated()}
     print(json.dumps({"window_attention_sr_tiled": call}), flush=True)
     check(call["launches"] == 36 * 11, f"window attention launches in one {WINDOW_ATTENTION_CANVAS} sr_tiled call: {call}")
     check(call["swin_add_norm_launches"] == 2 * 36 * 11,
           f"add-norm launches in one {WINDOW_ATTENTION_CANVAS} sr_tiled call: {call}")
+    check(call["swin_mlp_launches"] == 36 * 11, f"MLP launches in one {WINDOW_ATTENTION_CANVAS} sr_tiled call: {call}")
     del engine
     torch.cuda.empty_cache()
     for row in rows:
@@ -819,6 +827,61 @@ def phase_swin_add_norm(torch, report):
     torch.cuda.empty_cache()
     report["swin_add_norm_checks"] = rows
     return rows
+
+
+def phase_swin_mlp(torch, report):
+    """The MLP kernel at SwinIR-M's chunk, [524288, 180] -> 360 -> 180
+    bf16: against its plain version (``parity_bar`` with one hidden ulp) and
+    the chain it replaces (three), timed beside its bound (the larger of the
+    operations at the bf16 peak and the bytes, x and m once and the weights
+    once, at the memory rate), the plain version and, as the yardstick, the
+    PyTorch chain it replaces in the Swin layer (``F.linear``, ``F.gelu``,
+    ``F.linear``). The weights are laid out once, outside the timing."""
+    from image_restoration_platform_tpu_torch.ops.cuda import swin_mlp as M
+    from image_restoration_platform_tpu_torch.utils.peaks import HBM_BYTES_PER_S, PEAK_FLOPS
+
+    F = torch.nn.functional
+    rows, c, hidden = SWIN_MLP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((rows, c), generator=gen, device="cuda").to(torch.bfloat16)
+    w1 = (0.08 * torch.randn((c, hidden), generator=gen, device="cuda")).to(torch.bfloat16)
+    b1 = (0.1 * torch.randn(hidden, generator=gen, device="cuda")).to(torch.bfloat16)
+    w2 = (0.06 * torch.randn((hidden, c), generator=gen, device="cuda")).to(torch.bfloat16)
+    b2 = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    wpack, bias = M.pack_weights(w1, b1, w2, b2)
+
+    def kernel():
+        return M.swin_mlp_kernel(x, wpack, bias)
+
+    def plain():
+        return M.swin_mlp_reference(x, w1, b1, w2, b2)
+
+    def chain():
+        return F.linear(F.gelu(F.linear(x, w1.t(), b1)), w2.t(), b2)
+
+    got, ref, lib = kernel(), plain(), chain()
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    flops = 4 * rows * c * hidden
+    nbytes = 2 * rows * c * 2 + 2 * c * hidden * 2 + (c + hidden) * 2
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S
+    row = {"kernel": "swin_mlp", "shape": list(SWIN_MLP_SHAPE), "dtype": "bfloat16",
+           "path": f"{WINDOW_ATTENTION_FAMILY} sr_tiled, a chunk of 8 tiles",
+           "max_abs_err": float(err.max()), "unequal_share": float((got != ref).float().mean()),
+           "within_bar": bool((err <= M.parity_bar(x, w1, b1, w2, b2)).all()),
+           "chain_max_abs_err": float((got.float() - lib.float()).abs().max()),
+           "chain_within_bar": bool(((got.float() - lib.float()).abs() <= M.parity_bar(x, w1, b1, w2, b2, chain=True)).all()),
+           "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain, groups=10, calls=3),
+           "library_ms": time_ms(torch, chain, groups=10, calls=3),
+           "library": "the PyTorch chain it replaces (F.linear, F.gelu, F.linear)",
+           "bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(json.dumps(row), flush=True)
+    check(row["within_bar"] and row["chain_within_bar"], f"swin MLP: {row}")
+    del x, got, ref, lib, err
+    torch.cuda.empty_cache()
+    report["swin_mlp_checks"] = [row]
+    return [row]
 
 
 def phase_blend_kernel(torch, report):
@@ -3472,6 +3535,7 @@ def main() -> int:
     from image_restoration_platform_tpu_torch.ops.cuda import build
     from image_restoration_platform_tpu_torch.ops.cuda import group_norm as G
     from image_restoration_platform_tpu_torch.ops.cuda import swin_add_norm as S
+    from image_restoration_platform_tpu_torch.ops.cuda import swin_mlp as M
     from image_restoration_platform_tpu_torch.ops.cuda import window_attention as W
 
     t_start = time.perf_counter()
@@ -3491,7 +3555,7 @@ def main() -> int:
 
     t = time.perf_counter()
     with ThreadPoolExecutor(max_workers=4) as pool:
-        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE, G.SOURCE, W.SOURCE, S.SOURCE)))
+        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE, G.SOURCE, W.SOURCE, S.SOURCE, M.SOURCE)))
     report["build_s"] = time.perf_counter() - t
     report["build_s_by_source"] = {source: seconds for source, _, seconds in builds}
     report["ptxas"] = {source: [line.strip() for line in log.splitlines()
@@ -3553,6 +3617,7 @@ def main() -> int:
     blend_rows = phase_blend_kernel(torch, report)
     gn_rows = phase_gn_kernels(torch, report)
     san_rows = phase_swin_add_norm(torch, report)
+    mlp_rows = phase_swin_mlp(torch, report)
     wa_rows = phase_window_attention(torch, report)
     if args.plan_sweep:
         phase_plan_sweep(torch, report)
@@ -3680,6 +3745,18 @@ def main() -> int:
         "launches": san_launches,
         "launches_by_path": {f"sr_tiled_{WINDOW_ATTENTION_CANVAS}": san_launches},
         **{k: san_main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
+    mlp_launches = report["window_attention_sr_tiled"]["swin_mlp_launches"]
+    kernels.append({
+        "name": "swin_mlp",
+        "variant": "bf16",
+        "variants": [{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")} for r in mlp_rows],
+        "route": "cuda",
+        "source": f"{PKG}/csrc/swin_mlp.cu",
+        "replaces": "none: the JAX package has no transformer (SwinIR's MLP: fc1, GELU, fc2)",
+        "launches": mlp_launches,
+        "launches_by_path": {f"sr_tiled_{WINDOW_ATTENTION_CANVAS}": mlp_launches},
+        **{k: mlp_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
     for k in kernels:
         check(all(n > 0 for n in k["launches_by_path"].values()), f"{k['name']} was not launched on a path: {k}")

@@ -13,13 +13,13 @@ and the padding cropped. The pixel shuffle is PyTorch's (channel-major,
 ``(c, ph, pw)``), as published, not the layer library's (``(ph, pw, c)``).
 
 Activations are NHWC at every layer, so a Swin layer's tokens are the
-``[B, H, W, C]`` grid itself. The linears (``F.linear``, the bias in the
-product's epilogue), GELU, the convs and the patch embedding's and the final
-LayerNorm (f32 statistics inside PyTorch's kernel) are plain PyTorch; the
-window attention is ``ops/cuda/window_attention.py``, and each Swin layer's
-residual adds, its two LayerNorms, the roll and the window partition and
-reverse are ``ops/cuda/swin_add_norm.py`` (both hand-written kernels on a
-card). Parameter names are the npz layout of the benchmark's reference
+``[B, H, W, C]`` grid itself. The attention's qkv and proj linears
+(``F.linear``, the bias in the product's epilogue), the convs and the patch
+embedding's and the final LayerNorm (f32 statistics inside PyTorch's kernel)
+are plain PyTorch; the window attention is ``ops/cuda/window_attention.py``,
+each Swin layer's residual adds, its two LayerNorms, the roll and the window
+partition and reverse are ``ops/cuda/swin_add_norm.py``, and its MLP (fc1,
+GELU, fc2) is ``ops/cuda/swin_mlp.py`` (hand-written kernels on a card). Parameter names are the npz layout of the benchmark's reference
 (``benchmark/reference/swinir.py``): ``layers/<i>/blocks/<j>/attn/qkv`` and
 so on, convs HWIO in the file, dense kernels ``[in, out]``, the bias table
 ``[(2w - 1)^2, heads]``, so the family loads through ``models/weights.py``
@@ -38,6 +38,8 @@ from torch import nn
 
 from ..ops.cuda.swin_add_norm import add_norm_from_windows, add_norm_to_windows
 from ..ops.cuda.swin_add_norm import check_shapes as check_add_norm_shapes
+from ..ops.cuda.swin_mlp import PackedWeights, swin_mlp
+from ..ops.cuda.swin_mlp import check_shapes as check_mlp_shapes
 from ..ops.cuda.window_attention import check_shapes as check_window_shapes
 from ..ops.cuda.window_attention import window_attention
 from . import nn as L
@@ -74,17 +76,20 @@ class SwinIRConfig:
 
 def check_kernel_shapes(name: str, cfg: SwinIRConfig) -> None:
     """Raise, naming the family ``name``, unless the add-norm kernel takes its
-    windows and width (``ops/cuda/swin_add_norm.py:check_shapes``) and the
+    windows and width (``ops/cuda/swin_add_norm.py:check_shapes``), the
     window attention kernel its windows, heads and head dim
-    (``ops/cuda/window_attention.py:check_shapes``)."""
+    (``ops/cuda/window_attention.py:check_shapes``) and the MLP kernel its
+    width and hidden width (``ops/cuda/swin_mlp.py:check_shapes``)."""
+    hidden = int(cfg.embed_dim * cfg.mlp_ratio)
     try:
         check_add_norm_shapes(cfg.window_size, cfg.embed_dim)
         for heads in cfg.num_heads:
             check_window_shapes(cfg.window_size, heads, cfg.embed_dim)
+        check_mlp_shapes(cfg.embed_dim, hidden)
     except ValueError as error:
         raise ValueError(f"model family {name!r} gives its kernels windows of {cfg.window_size} with "
-                         f"{cfg.embed_dim} channels over {cfg.num_heads} heads, which they do not take: {error}"
-                         ) from error
+                         f"{cfg.embed_dim} channels over {cfg.num_heads} heads and an MLP of {hidden}, which they "
+                         f"do not take: {error}") from error
 
 
 class LayerNorm(nn.Module):
@@ -138,9 +143,11 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = L.Dense(dim, hidden)
         self.fc2 = L.Dense(hidden, dim)
+        self.packed = PackedWeights()  # the kernel's layout of the four tensors, on a card
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(self.fc2, F.gelu(linear(self.fc1, x)))
+        """fc2(GELU(fc1(x))), the erf GELU, x [..., C] -> [..., C]."""
+        return swin_mlp(x, self.fc1.w, self.fc1.b, self.fc2.w, self.fc2.b, self.packed)
 
 
 class SwinLayer(nn.Module):
