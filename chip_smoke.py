@@ -30,7 +30,10 @@ failure (exit code 1):
    swinir-m-x2 tiled call on a 2048 canvas; the Swin layer's add-norm at
    that chunk, both forms and both shifts, the sums bit for bit and the
    LayerNorm within one bf16 ulp, with its launches in the same call, and
-   the PyTorch chain it replaces timed as its yardstick), and times the kernel, the
+   the PyTorch chain it replaces timed as its yardstick; HAT's kernels at
+   its chunk: the window attention at 16, plain and shifted, and the
+   overlap attention within ``bf16_parity_bar``, the add-norm's forms at 16,
+   and their launches in one hat-x2 tiled call on a 2048 canvas), and times the kernel, the
    plain version and the
    library call that computes the same function beside the computed bound
    and, for attention, the exponential limit ``exp_ms`` (CUDA events around
@@ -316,6 +319,15 @@ SWIN_ADD_NORM_FORMS = ("to_windows", "to_windows_no_add", "from_windows")
 # 256 tokens, 180] -> 360 -> 180 bf16. Its launches in the 2048 call: one a
 # Swin layer and chunk
 SWIN_MLP_SHAPE = (8 * 256 * 256, 180, 360)
+# HAT's kernels (models/hat.py) at its chunk: 8 tiles of 256 are 8 x 16 x 16
+# windows of 256 tokens with 6 heads of 30 (hat-x2). The window attention
+# at 16, plain (shift 0) and shifted (shift 8); the overlap attention, each
+# window's 256 queries against the 24 x 24 keys around it; the add-norm's
+# forms at 16. Their launches are read from one replay of the family's tiled
+# call on a 2048 canvas: 36 HABs and 6 OCABs x 11 chunks
+HAT_SHAPE = (8, (16, 16), 6, 30)  # tiles, window grid, heads, head dim
+HAT_FAMILY = "hat-x2"
+HAT_ADD_NORM_FORMS = ("both", "both_no_add", "from_windows")
 
 # the blend: (canvas h x w, tile, overlap, scale, where the path uses it);
 # tiles of T*scale land at scaled origins, as ops/tile.py tiled_apply calls it
@@ -761,7 +773,7 @@ def phase_swin_add_norm(torch, report):
 
     F = torch.nn.functional
     n, h, w, c = SWIN_ADD_NORM_SHAPE
-    eps, ws = 1e-5, S.KERNEL_WINDOW
+    eps, ws = 1e-5, 8
     gen = torch.Generator(device="cuda").manual_seed(6)
     x = (torch.randn((n, h, w, c), generator=gen, device="cuda") + 0.3).to(torch.bfloat16)
     a = (0.5 * torch.randn((n, h, w, c), generator=gen, device="cuda")).to(torch.bfloat16)
@@ -882,6 +894,122 @@ def phase_swin_mlp(torch, report):
     torch.cuda.empty_cache()
     report["swin_mlp_checks"] = [row]
     return [row]
+
+
+def phase_hat_kernels(torch, report):
+    """HAT's kernels at its chunk: the window attention at 16, plain and
+    shifted, and the overlap attention against their plain versions
+    (``bf16_parity_bar``), the add-norm's forms at 16 against theirs (the
+    sums bit for bit, the norms within one bf16 ulp), each timed beside its
+    bound; then their launches in one replay of the family's tiled call on a
+    2048 canvas (random weights: the family ships none), and that call's
+    time and memory."""
+    import numpy as np
+
+    from image_restoration_platform_tpu_torch.ops.cuda import attention as A
+    from image_restoration_platform_tpu_torch.ops.cuda import overlap_attention as O
+    from image_restoration_platform_tpu_torch.ops.cuda import swin_add_norm as S
+    from image_restoration_platform_tpu_torch.ops.cuda import window_attention as W
+    from image_restoration_platform_tpu_torch.ops.cuda.swin_mlp import swin_mlp_kernel
+    from image_restoration_platform_tpu_torch.serve import RestorationEngine
+    from image_restoration_platform_tpu_torch.utils.peaks import HBM_BYTES_PER_S, PEAK_FLOPS
+
+    tiles, (gh, gw), heads, d = HAT_SHAPE
+    nw, c = tiles * gh * gw, heads * d
+    tokens = nw * 256
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    qkv = torch.randn((nw, 256, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+    rows = []
+
+    def attention_row(kernel, name, shift, fn, plain, keys, table):
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        t_ops = 4 * tokens * keys * c / PEAK_FLOPS["bfloat16"]
+        t_bytes = (4 * tokens * c * 2 + table.numel() * 4) / HBM_BYTES_PER_S
+        row = {"kernel": kernel, "form": name, "shift": shift, "qkv": list(qkv.shape), "heads": heads,
+               "keys": keys, "dtype": "bfloat16", "path": f"{HAT_FAMILY} sr_tiled, a chunk of {tiles} tiles",
+               "max_abs_err": float((out.float() - ref.float()).abs().max()), "tolerance": A.bf16_parity_bar(ref),
+               "ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain, groups=3, calls=1, warmup=1),
+               "bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps(row), flush=True)
+        check(row["max_abs_err"] <= row["tolerance"], f"{kernel}: {row}")
+        rows.append(row)
+        del out, ref
+        torch.cuda.empty_cache()
+
+    table = torch.randn((961, heads), generator=gen, device="cuda") * 0.5
+    for shift in (0, 8):
+        attention_row("window_attention", "window_16" if not shift else "shifted_16", shift,
+                      lambda: W.window_attention_kernel(qkv, table, heads, shift, (gh, gw)),
+                      lambda: W.window_attention_reference(qkv, table, heads, shift, (gh, gw)), 256, table)
+    otable = torch.randn((1521, heads), generator=gen, device="cuda") * 0.5
+    attention_row("overlap_attention", "overlap", 0, lambda: O.overlap_attention_kernel(qkv, otable, heads, (gh, gw)),
+                  lambda: O.overlap_attention_reference(qkv, otable, heads, (gh, gw), 16, 24), 576, otable)
+    del qkv
+
+    eps, shape = 1e-5, (tiles, gh * 16, gw * 16, c)
+    x = (torch.randn(shape, generator=gen, device="cuda") + 0.3).to(torch.bfloat16)
+    a = (0.5 * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+    weight = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    p = a.view(-1, 256, c)
+    for form in HAT_ADD_NORM_FORMS:
+        for shift in (0, 8):
+            if form == "from_windows":
+                def kernel():
+                    return S.swin_add_norm_kernel("from_windows", x, p, weight, bias, eps, shift, 16)
+
+                def plain():
+                    return S.add_norm_from_windows_reference(x, p, weight, bias, eps, shift, 16)
+            else:
+                operand = a if form == "both" else None
+
+                def kernel():
+                    return S.swin_add_norm_kernel("to_windows", x, operand, weight, bias, eps, shift, 16, tokens=True)
+
+                def plain():
+                    return S.add_norm_to_windows_and_tokens_reference(x, operand, weight, bias, eps, shift, 16)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            ulps = [float(((g.float() - w.float()).abs() / torch.exp2(torch.floor(torch.log2(
+                w.float().abs().clamp_min(2.0**-8))) - 7)).max()) for g, w in zip(got[1:], want[1:])]
+            tensors = {"both": 5, "both_no_add": 3, "from_windows": 4}[form]
+            row = {"kernel": "swin_add_norm", "form": form, "window": 16, "shift": shift, "shape": list(shape),
+                   "dtype": "bfloat16", "path": f"{HAT_FAMILY} sr_tiled, a chunk of {tiles} tiles",
+                   "sums_equal": bool(torch.equal(got[0], want[0])), "max_norm_err_ulps": max(ulps),
+                   "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain, groups=5, calls=2),
+                   "bound_ms": 1e3 * (tensors * x.numel() * 2 + 2 * c * 2) / HBM_BYTES_PER_S, "bound_by": "bytes"}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            check(row["sums_equal"] and row["max_norm_err_ulps"] <= 1.0, f"add-norm at 16: {row}")
+            rows.append(row)
+            del got, want
+    del x, a, p
+    torch.cuda.empty_cache()
+
+    engine = RestorationEngine(device="cuda")
+    canvas = np.zeros((2048, 2048, 3), np.uint8)
+    engine.sr_tiled(canvas, HAT_FAMILY)  # builds the graph
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = {"overlap_attention": O.overlap_attention_kernel, "window_attention": W.window_attention_kernel,
+               "swin_add_norm": S.swin_add_norm_kernel, "swin_mlp": swin_mlp_kernel}
+    before = {name: k.launches for name, k in kernels.items()}
+    t = time.perf_counter()
+    engine.sr_tiled(canvas, HAT_FAMILY)
+    call = {"family": HAT_FAMILY, "canvas": 2048, "wall_ms": 1e3 * (time.perf_counter() - t),
+            "launches": {name: k.launches - before[name] for name, k in kernels.items()},
+            "memory_peak_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps({"hat_sr_tiled": call}), flush=True)
+    check(call["launches"] == {"overlap_attention": 6 * 11, "window_attention": 36 * 11,
+                               "swin_add_norm": 2 * 42 * 11, "swin_mlp": 42 * 11},
+          f"HAT's launches in one 2048 sr_tiled call: {call}")
+    del engine
+    torch.cuda.empty_cache()
+    report["hat_kernel_checks"] = rows
+    report["hat_sr_tiled"] = call
+    return rows
 
 
 def phase_blend_kernel(torch, report):
@@ -3534,6 +3662,7 @@ def main() -> int:
     from image_restoration_platform_tpu_torch.ops.cuda import blend as B
     from image_restoration_platform_tpu_torch.ops.cuda import build
     from image_restoration_platform_tpu_torch.ops.cuda import group_norm as G
+    from image_restoration_platform_tpu_torch.ops.cuda import overlap_attention as O
     from image_restoration_platform_tpu_torch.ops.cuda import swin_add_norm as S
     from image_restoration_platform_tpu_torch.ops.cuda import swin_mlp as M
     from image_restoration_platform_tpu_torch.ops.cuda import window_attention as W
@@ -3555,7 +3684,7 @@ def main() -> int:
 
     t = time.perf_counter()
     with ThreadPoolExecutor(max_workers=4) as pool:
-        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE, G.SOURCE, W.SOURCE, S.SOURCE, M.SOURCE)))
+        builds = list(pool.map(timed_build, (A.SOURCE, B.SOURCE, G.SOURCE, W.SOURCE, S.SOURCE, M.SOURCE, O.SOURCE)))
     report["build_s"] = time.perf_counter() - t
     report["build_s_by_source"] = {source: seconds for source, _, seconds in builds}
     report["ptxas"] = {source: [line.strip() for line in log.splitlines()
@@ -3619,6 +3748,7 @@ def main() -> int:
     san_rows = phase_swin_add_norm(torch, report)
     mlp_rows = phase_swin_mlp(torch, report)
     wa_rows = phase_window_attention(torch, report)
+    hat_rows = phase_hat_kernels(torch, report)
     if args.plan_sweep:
         phase_plan_sweep(torch, report)
         if args.report:
@@ -3757,6 +3887,19 @@ def main() -> int:
         "launches": mlp_launches,
         "launches_by_path": {f"sr_tiled_{WINDOW_ATTENTION_CANVAS}": mlp_launches},
         **{k: mlp_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
+    hat_call = report["hat_sr_tiled"]["launches"]
+    oa_row = next(r for r in hat_rows if r["kernel"] == "overlap_attention")
+    kernels.append({
+        "name": "overlap_attention",
+        "variant": "mma_sync",
+        "variants": [{k: oa_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}],
+        "route": "cuda",
+        "source": f"{PKG}/csrc/overlap_attention.cu",
+        "replaces": "none: the JAX package has no transformer (HAT's OCAB: overlapping cross-window attention)",
+        "launches": hat_call["overlap_attention"],
+        "launches_by_path": {f"{HAT_FAMILY}_sr_tiled_2048": hat_call["overlap_attention"]},
+        **{k: oa_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
     })
     for k in kernels:
         check(all(n > 0 for n in k["launches_by_path"].values()), f"{k['name']} was not launched on a path: {k}")

@@ -1,16 +1,19 @@
 // Residual add and LayerNorm of the Swin transformer's token stream, with the
-// shifted windows' addressing, for Hopper (sm_90a). SwinIR's Swin layer
-// (models/swinir.py) calls it twice:
+// shifted windows' addressing, for Hopper (sm_90a), on windows of w = 8
+// (SwinIR's Swin layer, models/swinir.py) or 16 (HAT's blocks,
+// models/hat.py). A layer calls it twice:
 //
 //   to_windows   x [B, H, W, C] and an optional a [B, H, W, C], both in token
 //                order: writes s = x + a in token order (nothing when a is
 //                absent: s is x) and LayerNorm(s) in the rolled window layout
-//                [B * nW, 64, C] that the qkv linear reads, row (n, t) holding
-//                the token at ((wy * 8 + t / 8 + shift) mod H,
-//                (wx * 8 + t % 8 + shift) mod W) of window n = (b, wy, wx):
-//                torch.roll(-shift) then the window partition;
+//                [B * nW, w * w, C] that the qkv linear reads, row (n, t)
+//                holding the token at ((wy * w + t / w + shift) mod H,
+//                (wx * w + t % w + shift) mod W) of window n = (b, wy, wx):
+//                torch.roll(-shift) then the window partition; with a
+//                norm_tokens output, LayerNorm(s) in token order as well
+//                (HAT's convolution branch reads the image);
 //   from_windows x [B, H, W, C] in token order and the proj linear's output p
-//                [B * nW, 64, C] in that window layout: writes s = x +
+//                [B * nW, w * w, C] in that window layout: writes s = x +
 //                roll(+shift)(window_reverse(p)) and LayerNorm(s), both in
 //                token order. p is gathered through the same map.
 //
@@ -34,7 +37,9 @@
 // the memory rate (half of it where a is absent). What the design does about
 // it:
 //
-// * one block a window, its 64 rows in pairs: two neighbouring tokens 2t and
+// * one block a window of 8, or a quarter of a window of 16 (four of its
+//   rows), so a block holds 64 rows either way, in pairs: two neighbouring
+//   tokens 2t and
 //   2t + 1 of a window row are 2C bf16, a contiguous run in both layouts.
 //   The roll never separates them (the shift is even and so is W), and with
 //   C % 4 == 0 every pair starts on a 16-byte boundary (a 180-wide token row
@@ -61,8 +66,7 @@
 
 namespace {
 
-constexpr int kWindow = 8;
-constexpr int kTokens = kWindow * kWindow;  // 64 rows a window
+constexpr int kTokens = 64;  // rows a block: a window of 8, a quarter of a window of 16
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxChannels = 256;
@@ -86,33 +90,39 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <bool kToWindows, bool kAdd>
+template <bool kToWindows, bool kAdd, int kWindow, bool kTokensToo>
 __global__ void __launch_bounds__(kThreads, 4)
     swin_add_norm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ a,
                          const __nv_bfloat16* __restrict__ gamma, const __nv_bfloat16* __restrict__ beta,
-                         __nv_bfloat16* __restrict__ sum, __nv_bfloat16* __restrict__ norm, int channels,
-                         int grid_h, int grid_w, int shift, float eps) {
+                         __nv_bfloat16* __restrict__ sum, __nv_bfloat16* __restrict__ norm,
+                         __nv_bfloat16* __restrict__ norm_tokens, int channels, int grid_h, int grid_w, int shift,
+                         float eps) {
+  constexpr int kParts = kWindow * kWindow / kTokens;  // blocks a window
+  constexpr int kPartRows = kTokens / kWindow;         // window rows a block
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [64, C], window rows in order
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [64, C], the block's window rows in order
   __nv_bfloat16* as = xs + kTokens * channels;                 // [64, C], the operand (kAdd)
 
-  // the window's place: image b, window (wy, wx); its rows' tokens in the image
-  const int window = blockIdx.x;
+  // the window's place: image b, window (wy, wx), the block's part of it;
+  // its rows' tokens in the image
+  const int window = blockIdx.x / kParts;
+  const int part = blockIdx.x - window * kParts;
   const int per_image = grid_h * grid_w;
   const int b = window / per_image;
   const int wy = (window - b * per_image) / grid_w;
   const int wx = window - b * per_image - wy * grid_w;
   const int image_h = grid_h * kWindow, image_w = grid_w * kWindow;
   const size_t image0 = static_cast<size_t>(b) * image_h * image_w;
-  // the token-order row of window row t (roll(-shift), then partition)
+  // the token-order row of the block's row t (roll(-shift), then partition)
   auto token = [&](int t) -> size_t {
-    int y = wy * kWindow + (t >> 3) + shift;
-    int xx = wx * kWindow + (t & 7) + shift;
+    int y = wy * kWindow + part * kPartRows + t / kWindow + shift;
+    int xx = wx * kWindow + t % kWindow + shift;
     if (y >= image_h) y -= image_h;
     if (xx >= image_w) xx -= image_w;
     return image0 + static_cast<size_t>(y) * image_w + xx;
   };
-  const size_t row0 = static_cast<size_t>(window) * kTokens;  // the window layout's first row
+  // the window layout's first row of the block
+  const size_t row0 = static_cast<size_t>(window) * kWindow * kWindow + part * kTokens;
 
   // x's and the operand's rows into shared memory, a pair of tokens at a time
   const int per_pair = channels / 4;  // 16-byte copies in 2C bf16
@@ -204,49 +214,71 @@ __global__ void __launch_bounds__(kThreads, 4)
           if (kAdd) srow[j] = pack(v[r][k].x, v[r][k].y);  // exact: v holds bf16 values
           nrow[j] = pack(g[k].x * (rstd * (v[r][k].x - mean[r])) + be[k].x,
                          g[k].y * (rstd * (v[r][k].y - mean[r])) + be[k].y);
+          if (kTokensToo) reinterpret_cast<uint32_t*>(norm_tokens + tok * channels)[j] = nrow[j];
         }
       }
     }
   }
 }
 
-template <bool kToWindows, bool kAdd>
+template <bool kToWindows, bool kAdd, int kWindow, bool kTokensToo>
 cudaError_t launch(const void* x, const void* a, const void* gamma, const void* beta, void* sum, void* norm,
-                   int windows, int channels, int grid_h, int grid_w, int shift, float eps, cudaStream_t stream) {
+                   void* norm_tokens, int windows, int channels, int grid_h, int grid_w, int shift, float eps,
+                   cudaStream_t stream) {
   const int smem_bytes = (kAdd ? 2 : 1) * kTokens * channels * 2;
-  auto* kernel = swin_add_norm_kernel<kToWindows, kAdd>;
+  auto* kernel = swin_add_norm_kernel<kToWindows, kAdd, kWindow, kTokensToo>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<windows, kThreads, smem_bytes, stream>>>(
+  kernel<<<windows * (kWindow * kWindow / kTokens), kThreads, smem_bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(gamma), static_cast<const __nv_bfloat16*>(beta),
-      static_cast<__nv_bfloat16*>(sum), static_cast<__nv_bfloat16*>(norm), channels, grid_h, grid_w, shift, eps);
+      static_cast<__nv_bfloat16*>(sum), static_cast<__nv_bfloat16*>(norm), static_cast<__nv_bfloat16*>(norm_tokens),
+      channels, grid_h, grid_w, shift, eps);
   return cudaGetLastError();
+}
+
+template <int kWindow>
+cudaError_t dispatch(const void* x, const void* a, const void* gamma, const void* beta, void* sum, void* norm,
+                     void* norm_tokens, int to_windows, int windows, int channels, int grid_h, int grid_w, int shift,
+                     float eps, cudaStream_t s) {
+  if (!to_windows) {
+    return launch<false, true, kWindow, false>(x, a, gamma, beta, sum, norm, nullptr, windows, channels, grid_h,
+                                               grid_w, shift, eps, s);
+  }
+  if (norm_tokens != nullptr) {
+    return a != nullptr ? launch<true, true, kWindow, true>(x, a, gamma, beta, sum, norm, norm_tokens, windows,
+                                                            channels, grid_h, grid_w, shift, eps, s)
+                        : launch<true, false, kWindow, true>(x, a, gamma, beta, sum, norm, norm_tokens, windows,
+                                                             channels, grid_h, grid_w, shift, eps, s);
+  }
+  return a != nullptr ? launch<true, true, kWindow, false>(x, a, gamma, beta, sum, norm, nullptr, windows, channels,
+                                                           grid_h, grid_w, shift, eps, s)
+                      : launch<true, false, kWindow, false>(x, a, gamma, beta, sum, norm, nullptr, windows, channels,
+                                                            grid_h, grid_w, shift, eps, s);
 }
 
 }  // namespace
 
 // to_windows: 1 for the to_windows form (a in token order, or null: no add,
-// sum unused), 0 for from_windows (a is p in the window layout, not null);
-// windows: B * grid_h * grid_w, batch-major, rows of each row-major;
-// channels: C, a multiple of 4 up to 256; shift: 0 or an even roll below 8.
-// x, a, sum and norm are 16-byte aligned.
+// sum unused; norm_tokens, if not null, gets the norm in token order too), 0
+// for from_windows (a is p in the window layout, not null; norm_tokens
+// null); window: 8 or 16; windows: B * grid_h * grid_w, batch-major, rows of
+// each row-major; channels: C, a multiple of 4 up to 256; shift: 0 or an
+// even roll below the window. x, a, sum, norm and norm_tokens are 16-byte
+// aligned.
 extern "C" int irp_swin_add_norm(const void* x, const void* a, const void* gamma, const void* beta, void* sum,
-                                 void* norm, int to_windows, int windows, int channels, int grid_h, int grid_w,
-                                 int shift, float eps, void* stream) {
+                                 void* norm, void* norm_tokens, int to_windows, int window, int windows,
+                                 int channels, int grid_h, int grid_w, int shift, float eps, void* stream) {
   if (channels < 4 || channels > kMaxChannels || channels % 4 != 0 || windows < 1 || grid_h < 1 || grid_w < 1 ||
-      windows % (grid_h * grid_w) != 0 || shift < 0 || shift >= kWindow || shift % 2 != 0 ||
-      (!to_windows && a == nullptr)) {
+      windows % (grid_h * grid_w) != 0 || (window != 8 && window != 16) || shift < 0 || shift >= window ||
+      shift % 2 != 0 || (!to_windows && (a == nullptr || norm_tokens != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (!to_windows) {
-    err = launch<false, true>(x, a, gamma, beta, sum, norm, windows, channels, grid_h, grid_w, shift, eps, s);
-  } else if (a != nullptr) {
-    err = launch<true, true>(x, a, gamma, beta, sum, norm, windows, channels, grid_h, grid_w, shift, eps, s);
-  } else {
-    err = launch<true, false>(x, a, gamma, beta, sum, norm, windows, channels, grid_h, grid_w, shift, eps, s);
-  }
+  const cudaError_t err =
+      window == 8 ? dispatch<8>(x, a, gamma, beta, sum, norm, norm_tokens, to_windows, windows, channels, grid_h,
+                                grid_w, shift, eps, s)
+                  : dispatch<16>(x, a, gamma, beta, sum, norm, norm_tokens, to_windows, windows, channels, grid_h,
+                                 grid_w, shift, eps, s);
   return static_cast<int>(err);
 }

@@ -3,7 +3,8 @@
 The families of image_restoration_platform_tpu/models/registry.py: the two
 restore UNets, the two SRNets and the diffusion family, whose model is the
 time-conditioned UNet that ``models.diffusion.restore`` samples with; and
-SwinIR-M x2 (models/swinir.py), which the JAX package does not have.
+two transformers the JAX package does not have, SwinIR-M x2
+(models/swinir.py) and HAT x2 (models/hat.py).
 What a family is follows from its config's type; ``ModelFamily`` answers
 it, and the rest of the port asks it, never a family's name or config type.
 """
@@ -19,9 +20,10 @@ import torch
 
 from ..ops.cuda.attention import launch_plan
 from ..utils.logging import get_logger
-from . import swinir
+from . import hat, swinir
 from . import weights as weights_mod
 from .diffusion import DiffusionConfig
+from .hat import HAT, HATConfig
 from .nn import takes_attention_kernel
 from .srnet import SRNet, SRNetConfig
 from .swinir import SwinIR, SwinIRConfig
@@ -31,7 +33,7 @@ from .unet import RestorationUNet, UNetConfig
 @dataclass(frozen=True)
 class ModelFamily:
     name: str
-    config: UNetConfig | SRNetConfig | SwinIRConfig | DiffusionConfig
+    config: UNetConfig | SRNetConfig | SwinIRConfig | HATConfig | DiffusionConfig
 
     def build(self) -> torch.nn.Module:
         """The family's module with zero parameters, ready for
@@ -40,23 +42,27 @@ class ModelFamily:
             return SRNet(self.config)
         if isinstance(self.config, SwinIRConfig):
             return SwinIR(self.config)
+        if isinstance(self.config, HATConfig):
+            return HAT(self.config)
         if isinstance(self.config, DiffusionConfig):
             return RestorationUNet(self.config.unet)
         return RestorationUNet(self.config)
 
     @property
     def kind(self) -> str:
-        """``"sr"`` (SRNet, SwinIR), ``"diffusion"`` (the time-conditioned
-        UNet the sampler runs) or ``"restore"`` (a restore UNet)."""
-        if isinstance(self.config, (SRNetConfig, SwinIRConfig)):
+        """``"sr"`` (SRNet, SwinIR, HAT), ``"diffusion"`` (the
+        time-conditioned UNet the sampler runs) or ``"restore"`` (a restore
+        UNet)."""
+        if isinstance(self.config, (SRNetConfig, SwinIRConfig, HATConfig)):
             return "sr"
         return "diffusion" if isinstance(self.config, DiffusionConfig) else "restore"
 
     @property
     def has_folded_layout(self) -> bool:
         """Whether models/folded.py has a W-folded layout of the family: all
-        but SwinIR, whose window attention works on the unfolded token grid."""
-        return not isinstance(self.config, SwinIRConfig)
+        but the transformers, whose window attention works on the unfolded
+        token grid."""
+        return not isinstance(self.config, (SwinIRConfig, HATConfig))
 
     @property
     def row_shards(self) -> bool:
@@ -66,8 +72,9 @@ class ModelFamily:
 
     @property
     def trainable(self) -> bool:
-        """Whether the trainer (train/) has a loss for the family: all but SwinIR."""
-        return not isinstance(self.config, SwinIRConfig)
+        """Whether the trainer (train/) has a loss for the family: all but
+        the transformers."""
+        return not isinstance(self.config, (SwinIRConfig, HATConfig))
 
     def uses_folded(self, serving) -> bool:
         """Whether an engine of ``serving`` (``config.ServingConfig``) serves
@@ -108,9 +115,12 @@ class ModelFamily:
         cannot take a shape the family gives it: the flash attention kernel
         one of ``attention_shapes`` (``ops/cuda/attention.py:launch_plan``
         states the limits), SwinIR's kernels its windows, heads and width
-        (``models.swinir.check_kernel_shapes``)."""
+        (``models.swinir.check_kernel_shapes``), HAT's those and its overlap
+        attention's (``models.hat.check_kernel_shapes``)."""
         if isinstance(self.config, SwinIRConfig):
             swinir.check_kernel_shapes(self.name, self.config)
+        if isinstance(self.config, HATConfig):
+            hat.check_kernel_shapes(self.name, self.config)
         for shape in self.attention_shapes(sizes, batch):
             try:
                 launch_plan(shape, dtype)
@@ -137,6 +147,7 @@ _FAMILIES: dict[str, ModelFamily] = {
     "sr-x2": ModelFamily("sr-x2", SRNetConfig(scale=2)),
     "sr-x4": ModelFamily("sr-x4", SRNetConfig(scale=4)),
     "swinir-m-x2": ModelFamily("swinir-m-x2", SwinIRConfig(scale=2)),
+    "hat-x2": ModelFamily("hat-x2", HATConfig(scale=2)),
     "diffusion-restore": ModelFamily("diffusion-restore", DiffusionConfig()),
 }
 
@@ -157,7 +168,7 @@ def list_families() -> list[str]:
 
 
 def is_sr_family(family_name: str) -> bool:
-    """Whether ``family_name`` is a super-resolution family (SRNet, SwinIR)."""
+    """Whether ``family_name`` is a super-resolution family (SRNet, SwinIR, HAT)."""
     return get_family(family_name).kind == "sr"
 
 

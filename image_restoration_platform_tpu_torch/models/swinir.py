@@ -203,14 +203,20 @@ class RSTB(nn.Module):
 
 
 class SwinIR(nn.Module):
+    """The network around its residual groups (``groups``, RSTBs here): the
+    shallow conv, the patch LayerNorm, the final LayerNorm and skip, and the
+    pixel-shuffle upsampler; models/hat.py reuses it with HAT's groups."""
+
+    # the modules whose own ``init_`` draws their linears and bias tables
+    blocks: tuple[type, ...] = (SwinLayer,)
+
     def __init__(self, config: SwinIRConfig = SwinIRConfig()):
         super().__init__()
         c = self.config = config
         d = c.embed_dim
         self.conv_first = L.Conv(c.in_channels, d)
         self.patch_norm = LayerNorm(d) if c.patch_norm else None
-        self.layers = nn.ModuleList(RSTB(d, depth, heads, c.window_size, c.mlp_ratio)
-                                    for depth, heads in zip(c.depths, c.num_heads))
+        self.layers = self.groups(c)
         self.norm = LayerNorm(d)
         self.conv_after_body = L.Conv(d, d)
         self.conv_before_upsample = L.Conv(d, c.num_feat)
@@ -218,13 +224,17 @@ class SwinIR(nn.Module):
         self.conv_last = L.Conv(c.num_feat, c.in_channels)
         self.register_buffer("mean", torch.tensor(c.rgb_mean, dtype=torch.float32), persistent=False)
 
+    def groups(self, c: SwinIRConfig) -> nn.ModuleList:
+        return nn.ModuleList(RSTB(c.embed_dim, depth, heads, c.window_size, c.mlp_ratio)
+                             for depth, heads in zip(c.depths, c.num_heads))
+
     def init_(self, gen: torch.Generator) -> "SwinIR":
         """Random weights from ``gen``, drawn as the benchmark's reference
         draws them (LayerNorms stay 1 and 0)."""
         for m in self.modules():
             if isinstance(m, L.Conv):
                 _conv_init(m, gen)
-            elif isinstance(m, SwinLayer):
+            elif isinstance(m, self.blocks):
                 m.init_(gen)
         return self
 

@@ -3,16 +3,18 @@ kernel and its plain version.
 
 Ports no TPU kernel: the JAX package has no transformer. SwinIR's W-MSA and
 SW-MSA (models/swinir.py) attend within each 8 x 8 window of the (rolled)
-token grid, with a learned relative-position bias and, on shifted layers,
-a -100 mask between tokens of different regions of the rolled image. The
-kernel (csrc/window_attention.cu) reads q, k and v straight from the qkv
-linear's ``[windows, 64, 3C]`` output and writes ``[windows, 64, C]`` for
-the proj linear, with the bias table read and the mask worked out inside it.
+token grid, HAT's HABs (models/hat.py) within each 16 x 16 window, with a
+learned relative-position bias and, on shifted layers, a -100 mask between
+tokens of different regions of the rolled image. The kernel
+(csrc/window_attention.cu, one instantiation a window size) reads q, k and v
+straight from the qkv linear's ``[windows, T, 3C]`` output and writes
+``[windows, T, C]`` for the proj linear, with the bias table read and the
+mask worked out inside it.
 
 ``window_attention`` takes the kernel for CUDA tensors and the plain version
 for CPU tensors; there is no other branch and no fallback between them.
 ``check_shapes`` states what the kernel takes; the engine calls it when it
-loads a SwinIR family (``models.registry.check_attention_shapes``).
+loads a SwinIR or HAT family (``models.registry.check_attention_shapes``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from . import build
 
 SOURCE = "window_attention.cu"
-KERNEL_WINDOW = 8
+KERNEL_WINDOWS = (8, 16)
 KERNEL_MAX_HEAD_DIM = 32
 KERNEL_MAX_HEADS = 8
 MASK_VALUE = -100.0
@@ -35,8 +37,9 @@ MASK_VALUE = -100.0
 def check_shapes(window: int, heads: int, channels: int) -> None:
     """Raise unless the kernel takes windows of ``window`` x ``window``
     tokens with ``channels`` split over ``heads`` heads."""
-    if window != KERNEL_WINDOW:
-        raise ValueError(f"the window attention kernel takes windows of {KERNEL_WINDOW}, got {window}")
+    if window not in KERNEL_WINDOWS:
+        raise ValueError(f"the window attention kernel takes windows of {' or '.join(map(str, KERNEL_WINDOWS))}, "
+                         f"got {window}")
     if not 1 <= heads <= KERNEL_MAX_HEADS:
         raise ValueError(f"the window attention kernel takes 1 to {KERNEL_MAX_HEADS} heads, got {heads}")
     head_dim = channels // heads
@@ -98,37 +101,42 @@ def window_attention_reference(qkv: torch.Tensor, table: torch.Tensor, heads: in
 
 
 class WindowAttentionKernel(build.Kernel):
-    """ctypes binding of ``irp_window_attention`` with its launch count."""
+    """ctypes binding of ``irp_window_attention`` with its launch count, by
+    window size and shift: windows of 8 count as "window" and "shifted",
+    windows of 16 as "window_16" and "shifted_16"."""
 
-    name, variants = "window_attention", ("window", "shifted")
+    name, variants = "window_attention", ("window", "shifted", "window_16", "shifted_16")
     source, symbol = SOURCE, "irp_window_attention"
-    argtypes = (*[ctypes.c_void_p] * 3, *[ctypes.c_int] * 6, ctypes.c_float)
+    argtypes = (*[ctypes.c_void_p] * 3, *[ctypes.c_int] * 7, ctypes.c_float)
 
     def __call__(self, qkv: torch.Tensor, table: torch.Tensor, heads: int, shift: int,
                  grid: tuple[int, int]) -> torch.Tensor:
-        """[B*nW, 64, 3C] CUDA bf16 contiguous qkv, [225, heads] f32 table ->
-        [B*nW, 64, C] bf16."""
+        """[B*nW, T, 3C] CUDA bf16 contiguous qkv (T = 64 or 256: windows of
+        8 or 16), [(2w - 1)^2, heads] f32 table -> [B*nW, T, C] bf16."""
         if not (qkv.is_cuda and table.is_cuda):
             raise ValueError("the window attention kernel takes CUDA tensors only")
         if qkv.dtype != torch.bfloat16 or table.dtype != torch.float32:
             raise TypeError(f"the window attention kernel takes bf16 qkv and an f32 table, got {qkv.dtype}/{table.dtype}")
-        if qkv.dim() != 3 or qkv.shape[1] != KERNEL_WINDOW**2 or qkv.shape[2] % 3:
-            raise ValueError(f"qkv must be [windows, {KERNEL_WINDOW**2}, 3C], got {tuple(qkv.shape)}")
+        tokens = [w * w for w in KERNEL_WINDOWS]
+        if qkv.dim() != 3 or qkv.shape[1] not in tokens or qkv.shape[2] % 3:
+            raise ValueError(f"qkv must be [windows, {' or '.join(map(str, tokens))}, 3C], got {tuple(qkv.shape)}")
         n, t, c3 = qkv.shape
-        check_shapes(KERNEL_WINDOW, heads, c3 // 3)
+        window = math.isqrt(t)
+        check_shapes(window, heads, c3 // 3)
         head_dim = c3 // (3 * heads)
-        if tuple(table.shape) != ((2 * KERNEL_WINDOW - 1) ** 2, heads):
-            raise ValueError(f"the bias table must be [{(2 * KERNEL_WINDOW - 1) ** 2}, {heads}], got {tuple(table.shape)}")
+        if tuple(table.shape) != ((2 * window - 1) ** 2, heads):
+            raise ValueError(f"the bias table must be [{(2 * window - 1) ** 2}, {heads}], got {tuple(table.shape)}")
         gh, gw = int(grid[0]), int(grid[1])
         if gh < 1 or gw < 1 or n % (gh * gw):
             raise ValueError(f"{n} windows are no whole number of {gh} x {gw} grids")
-        if not 0 <= shift < KERNEL_WINDOW:
-            raise ValueError(f"shift {shift} is outside [0, {KERNEL_WINDOW})")
+        if not 0 <= shift < window:
+            raise ValueError(f"shift {shift} is outside [0, {window})")
         if not (qkv.is_contiguous() and table.is_contiguous()) or qkv.data_ptr() % 16:
             raise ValueError("the window attention kernel takes a contiguous, 16-byte aligned qkv and table")
         out = torch.empty((n, t, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-        self.launch(qkv.device, "shifted" if shift else "window", qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
-                    n, heads, head_dim, gh, gw, shift, head_dim**-0.5)
+        variant = ("shifted" if shift else "window") + ("" if window == 8 else f"_{window}")
+        self.launch(qkv.device, variant, qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
+                    n, window, heads, head_dim, gh, gw, shift, head_dim**-0.5)
         return out
 
 

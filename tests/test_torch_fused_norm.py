@@ -404,7 +404,8 @@ def test_launch_delta_carries_the_fused_norm_kernels():
 KERNEL_MODULES = {"flash_attention": ("attention", "flash_kernel"), "blend_tiles": ("blend", "blend_kernel"),
                   "gn_moments": ("group_norm", "moments_kernel"), "gn_affine_silu": ("group_norm", "affine_silu_kernel"),
                   "window_attention": ("window_attention", "window_attention_kernel"),
-                  "swin_add_norm": ("swin_add_norm", "swin_add_norm_kernel")}
+                  "swin_add_norm": ("swin_add_norm", "swin_add_norm_kernel"),
+                  "overlap_attention": ("overlap_attention", "overlap_attention_kernel")}
 
 
 @pytest.mark.parametrize("name", list(KERNEL_MODULES))

@@ -194,9 +194,9 @@ def test_the_load_check_refuses_what_the_kernel_does_not_take(scratch_registry):
     register(ModelFamily("swinir-wide-heads", SwinIRConfig(embed_dim=68, depths=(2,), num_heads=(2,))))
     with pytest.raises(ValueError, match="swinir-wide-heads.*head dim of at most 32"):
         registry.check_attention_shapes("swinir-wide-heads", (256,), 8, torch.bfloat16)
-    register(ModelFamily("swinir-w16", SwinIRConfig(window_size=16)))
-    with pytest.raises(ValueError, match="swinir-w16.*windows of 8"):
-        registry.check_attention_shapes("swinir-w16", (256,), 8, torch.bfloat16)
+    register(ModelFamily("swinir-w12", SwinIRConfig(window_size=12)))
+    with pytest.raises(ValueError, match="swinir-w12.*windows of 8 or 16"):
+        registry.check_attention_shapes("swinir-w12", (256,), 8, torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         WA.window_attention_kernel(torch.zeros(1, 64, 540, dtype=torch.bfloat16), torch.zeros(225, 6), 6, 0, (1, 1))
 
